@@ -10,10 +10,12 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    default tiles and K2 (probe_hits) on a production-sized sorted stream
    with a forced spill table, each against its plain PyTorch version
    (exact: the outputs are integers), with times and bounds;
-3. CLI end to end: ``deacon_tpu_torch.cli.main(["filter", ...])`` on a
-   seeded 2 Mbp genome's index, single and paired, search and deplete,
-   output byte-identical between --device cuda and --device cpu; both
-   kernels' launch counters must rise;
+3. CLI end to end: ``deacon_tpu_torch.cli.main(["index", "build", ...])``
+   on the card writes a seeded 2 Mbp genome's index, byte-identical to
+   the index written from the host NumPy oracle; ``filter`` against it,
+   single and paired, search and deplete, output byte-identical between
+   --device cuda and --device cpu; both kernels' launch counters must
+   rise;
 4. panhuman scale (~4.1e8 index keys, k=31, w=15): keys made on the card,
    the radix table built on the card, ~20 Mbp of Illumina-like and
    ONT-like reads through DeviceDecider, some with poly-G tails and
@@ -21,7 +23,23 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    pipeline reruns those units on the card; at least one must be), the
    hits and totals of every read held against an independent reference
    (searchsorted membership, torch.unique distinct counts, NumPy XXH3).
-   The kernels' launch counts are those of this timed window.
+   The kernels' launch counts are those of this timed window;
+5. K3 (values_select) against its plain version, every output exact, at
+   the three default tiles at k=41, w=15 and one tile each at
+   (k, w) = (56, 9) and (31, 15), with dirty bases, short and unused rows;
+6. phase 3 at k=41, w=15 (the wide-k path, K3): ``index build`` with and
+   without -e 0.5 on a multi-record FASTA with N runs, IUPAC codes and
+   lowercase, on the card and on the CPU, byte-identical to each other
+   and to the oracle's index; then ``filter`` against it, cuda against
+   cpu, with reads whose rows go over their minimizer budget;
+7. phase 4 at k=41 (phase 4's table freed first): 4.1e8 keys plus the
+   k=41 minimizers of a seeded 5 Mbp genome, phase 4's read mix; the
+   reference hashes 128-bit values; K3 and K2 must run in the timed
+   window and K1 must not;
+8. index build at scale: a seeded 104 Mbp multi-record FASTA through
+   ``index build`` on the card at k=31 (K1) and k=41 (K3), with Mbp/s;
+   both indexes byte-identical to the oracle's over the records the
+   oracle (six worker processes) finishes within its time limit.
 
 Every temporary file lives in a tempfile directory outside the checkout
 and is deleted; nothing is left running. Exits non-zero, printing no
@@ -47,10 +65,12 @@ import torch
 import deacon_tpu_torch as dtt
 from deacon_tpu_torch.cli import main as cli_main
 from deacon_tpu_torch.filter.engine import DeviceDecider
+from deacon_tpu_torch.index.store import load_header_and_count
 from deacon_tpu_torch.ops import _build
 from deacon_tpu_torch.ops import kernels as K
 from deacon_tpu_torch.ops.engine import DevicePipeline
 from deacon_tpu_torch.ops.hash import lsr, xxh3_64
+from deacon_tpu_torch.ops.minimizers_np import get_minimizer_hashes_and_positions
 from deacon_tpu_torch.ops.pack import (
     _Row,
     default_budget_frac,
@@ -62,10 +82,11 @@ from deacon_tpu_torch.ops.radix_probe import (
     prep_sorted,
     sorted_unique_keys,
 )
-from deacon_tpu_torch.utils.xxh3 import xxh3_64_u64
+from deacon_tpu_torch.utils.xxh3 import xxh3_64_u64, xxh3_64_u128
 
 SEED = 20261017
 K_, W_ = 31, 15
+K_WIDE = 41
 PANHUMAN_KEYS = 410_000_000  # README: ~4.1e8 minimizers at k=31, w=15
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 33.5e12    # half the 67 TFLOP/s fp32 rate: 64 INT32 lanes/SM
@@ -123,10 +144,10 @@ def revcomp(s: bytes) -> bytes:
 # phase 2: kernel parity at main-path shapes
 # ---------------------------------------------------------------------------
 
-def tile_rows(rng, L: int, R: int) -> list[_Row]:
+def tile_rows(rng, L: int, R: int, k: int = K_, w: int = W_) -> list[_Row]:
     """R rows of a tile: random reads of varied length, runs of N,
     low-complexity stretches and short rows (allow_short)."""
-    l = K_ + W_ - 1
+    l = k + w - 1
     rows = []
     for i in range(R):
         kind = i % 8
@@ -142,7 +163,7 @@ def tile_rows(rng, L: int, R: int) -> list[_Row]:
             unit = rand_seq(rng, int(rng.integers(1, 4)))
             s[a:a + run] = (unit * (run // len(unit) + 1))[:run]
         elif kind == 3:  # short read: fewer than w k-mers
-            s = bytearray(rand_seq(rng, int(rng.integers(K_, l))))
+            s = bytearray(rand_seq(rng, int(rng.integers(k, l))))
         elif kind == 4:  # lowercase and IUPAC bytes
             for j in rng.integers(0, n, 6):
                 s[int(j)] = b"acgtRY"[int(rng.integers(0, 6))]
@@ -233,6 +254,57 @@ def phase2(rng) -> dict:
     return {"k1": k1, "k2": k2}
 
 
+def phase5_k3(rng) -> dict:
+    """K3 against its plain version: the three default tiles at k=41,
+    w=15 (summed for the kernel table), then one tile each at (56, 9)
+    and (31, 15). 1 row in 16 of each tile is unused (mlen -1). Every
+    output plane must be equal everywhere. Bound: ~20.4 bytes per base
+    (packed input read once, two 8-byte value planes and the 4-byte wpf
+    written once) or ~80 int32 operations per base (128-bit values,
+    key, window minimum, validity, flag), whichever is larger."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
+          "tiles": []}
+    cases = [(K_WIDE, W_, L, R) for L, R in DevicePipeline.DEFAULT_TILES]
+    cases += [(56, 9, 2048, 2048), (31, 15, 2048, 2048)]
+    for k, w, L, R in cases:
+        n = R - max(1, R // 16)
+        arrs = pack_rows_packed(tile_rows(rng, L, n, k, w), R, L, k,
+                                k + w - 1)
+        pc, pv, mlen, allow = (torch.from_numpy(a).to(dev) for a in arrs[:4])
+
+        def kern():
+            return K.values_select(pc, pv, mlen, allow, k=k, w=w)
+
+        def plain():
+            return K.values_select_plain(pc, pv, mlen, allow, k=k, w=w)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        bad = sum(int((g != p_).sum()) for g, p_ in zip(got, want))
+        if bad:
+            raise AssertionError(
+                f"K3 differs from its plain version at {bad} entries, "
+                f"(k, w, L, R) = {(k, w, L, R)}")
+        flagged = int((got[2] >> 16).sum())
+        ms = time_ms(kern, 20)
+        pms = time_ms(plain, 3, warm=1)
+        nbytes = R * (L // 4 + L // 8 + 4 + 1) + R * L * 20
+        b, by = bound_ms(nbytes, R * L * 80.0)
+        if k == K_WIDE:
+            k3["ms"] += ms
+            k3["plain_ms"] += pms
+            k3["bound_ms"] += b
+            k3["bound_by"] = by
+        k3["tiles"].append({"k": k, "w": w, "L": L, "R": R,
+                            "ms": round(ms, 4), "plain_ms": round(pms, 3),
+                            "bytes": nbytes, "bound_ms": round(b, 5),
+                            "bound_by": by, "flagged": flagged})
+    log("5 K3 parity", t0, k3=json.dumps(k3["tiles"]))
+    return k3
+
+
 # ---------------------------------------------------------------------------
 # phase 3: CLI end to end, cuda against cpu
 # ---------------------------------------------------------------------------
@@ -242,6 +314,38 @@ def write_fastq(path: str, records) -> None:
         for name, seq in records:
             f.write(b"@" + name + b"\n" + seq + b"\n+\n" + b"I" * len(seq)
                     + b"\n")
+
+
+def write_fasta(path: str, records, width: int = 70) -> None:
+    with open(path, "wb") as f:
+        for name, seq in records:
+            f.write(b">" + name + b"\n")
+            for j in range(0, len(seq), width):
+                f.write(seq[j:j + width] + b"\n")
+
+
+def cli_index_build(fa: str, out: str, k: int, w: int, device: str,
+                    *extra: str) -> None:
+    args = ["index", "build", fa, "-k", str(k), "-w", str(w), "-o", out,
+            "-q", "--device", device, *extra]
+    rc = cli_main(args)
+    if rc != 0:
+        raise AssertionError(f"CLI exit {rc}: {args}")
+
+
+def oracle_index(path: str, seqs, k: int, w: int, e: float = 0.0) -> bytes:
+    """The index of seqs written from the host NumPy oracle
+    (minimizers_np.compute_minimizer_hashes); returns its bytes."""
+    parts = [dtt.compute_minimizer_hashes(s, k, w, e) for s in seqs]
+    dtt.write_index(np.unique(np.concatenate(parts)),
+                    dtt.IndexHeader.new(k, w), path)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def sample_read(rng, genome: bytes, n: int) -> bytes:
@@ -257,9 +361,14 @@ def phase3(rng) -> dict:
     tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_")
     try:
         genome = rand_seq(rng, 2_000_000)
+        fa = os.path.join(tmp, "genome.fa")
+        write_fasta(fa, [(b"genome", genome)])
         idx = os.path.join(tmp, "genome.idx")
-        dtt.write_index(dtt.compute_minimizer_hashes(genome, K_, W_),
-                        dtt.IndexHeader.new(K_, W_), idx)
+        cli_index_build(fa, idx, K_, W_, "cuda")
+        if read_bytes(idx) != oracle_index(os.path.join(tmp, "oracle.idx"),
+                                           [genome], K_, W_):
+            raise AssertionError("index build on the card differs from the "
+                                 "oracle's index (k=31)")
         single = [(b"s%d" % i, sample_read(rng, genome, 150))
                   for i in range(3000)]
         single += [(b"long%d" % i,
@@ -324,6 +433,129 @@ def phase3(rng) -> dict:
     return launches
 
 
+def dirty_records(rng, n: int, lo: int, hi: int):
+    """n FASTA records of lo..hi bases: runs of N, IUPAC codes, a
+    lowercase stretch and a 2-4 kbp low-complexity stretch (half poly-A,
+    whose k-mers fail an entropy threshold of 0.5; its rows go over their
+    minimizer budget) in each."""
+    recs = []
+    for i in range(n):
+        s = bytearray(rand_seq(rng, int(rng.integers(lo, hi))))
+        for _ in range(5):
+            b = int(rng.integers(0, len(s) - 300))
+            run = int(rng.integers(1, 300))
+            s[b:b + run] = b"N" * run
+        for j in rng.integers(0, len(s), 40):
+            s[int(j)] = b"RYKMSWBDHVN"[int(rng.integers(0, 11))]
+        a = int(rng.integers(0, len(s) - 5000))
+        s[a:a + 5000] = bytes(s[a:a + 5000]).lower()
+        m = int(rng.integers(2000, 4001))
+        a = int(rng.integers(0, len(s) - m))
+        s[a:a + m] = b"A" * (m // 2) + low_complexity(rng, m - m // 2)
+        recs.append((b"chr%d seeded record" % i, bytes(s)))
+    return recs
+
+
+def phase6_wide_cli(rng) -> dict:
+    """Phase 3 at k=41: index build (card and CPU, with and without
+    -e 0.5) against the oracle's index, then filter cuda against cpu."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_wide_")
+    k = K_WIDE
+    try:
+        recs = dirty_records(rng, 6, 40_000, 120_000)
+        fa = os.path.join(tmp, "ref.fa")
+        write_fasta(fa, recs)
+        seqs = [s for _, s in recs]
+        K.select_compact.launches = K.values_select.launches = 0
+        sizes = []
+        for e in ([], ["-e", "0.5"]):
+            built = {}
+            for device in ("cuda", "cpu"):
+                built[device] = os.path.join(tmp, f"{device}{len(e)}.idx")
+                cli_index_build(fa, built[device], k, W_, device, *e)
+            want = oracle_index(os.path.join(tmp, "oracle.idx"), seqs, k,
+                                W_, float(e[1]) if e else 0.0)
+            for device, path in built.items():
+                if read_bytes(path) != want:
+                    raise AssertionError(
+                        f"index build -k {k} {e} on {device} differs from "
+                        "the oracle's index")
+            sizes.append(len(want))
+        if not sizes[1] < sizes[0]:
+            raise AssertionError("-e 0.5 filtered no k-mer of the FASTA")
+        build_launches = {"K1": K.select_compact.launches,
+                          "K3": K.values_select.launches}
+        if build_launches["K3"] <= 0 or build_launches["K1"] != 0:
+            raise AssertionError(f"index build -k {k}: {build_launches}")
+        idx = os.path.join(tmp, "cuda0.idx")  # built without -e
+        genome = b"".join(seqs)
+        single = [(b"s%d" % i, sample_read(rng, genome, 150))
+                  for i in range(1500)]
+        single += [(b"long%d" % i,
+                    sample_read(rng, genome, int(rng.integers(2000, 20000))))
+                   for i in range(20)]
+        lowc = [sample_read(rng, genome, 600)
+                + low_complexity(rng, int(rng.integers(600, 1400)))
+                for _ in range(12)]
+        single += [(b"lowc%d" % i, r) for i, r in enumerate(lowc)]
+        # a row of the (2048, 2048) tile over its 384-slot budget
+        over = sum(
+            get_minimizer_hashes_and_positions(r, 0, k, W_)[0].size
+            > v4_row_budget(2048, W_, default_budget_frac(W_))
+            for r in lowc)
+        if over == 0:
+            raise AssertionError("no read goes over its minimizer budget")
+        pairs = [(sample_read(rng, genome, 150), sample_read(rng, genome, 150))
+                 for _ in range(800)]
+        paths = {n: os.path.join(tmp, n) for n in ("s.fq", "r1.fq", "r2.fq")}
+        write_fastq(paths["s.fq"], single)
+        write_fastq(paths["r1.fq"], [(b"p%d/1" % i, a)
+                                     for i, (a, _) in enumerate(pairs)])
+        write_fastq(paths["r2.fq"], [(b"p%d/2" % i, b)
+                                     for i, (_, b) in enumerate(pairs)])
+        K.select_compact.launches = K.probe_hits.launches = 0
+        K.values_select.launches = 0
+        runs, kept = 0, 0
+        for deplete in ([], ["--deplete"]):
+            for inputs, two in (([paths["s.fq"]], False),
+                                ([paths["r1.fq"], paths["r2.fq"]], True)):
+                got = {}
+                for device in ("cuda", "cpu"):
+                    out = os.path.join(tmp, f"o_{device}.fq")
+                    out2 = os.path.join(tmp, f"o2_{device}.fq")
+                    args = ["filter", idx, *inputs, "-o", out, "-a", "2",
+                            "-q", "--device", device, *deplete]
+                    if two:
+                        args += ["-O", out2]
+                    rc = cli_main(args)
+                    if rc != 0:
+                        raise AssertionError(f"CLI exit {rc}: {args}")
+                    got[device] = (read_bytes(out),
+                                   read_bytes(out2) if two else b"")
+                    runs += 1
+                if got["cuda"] != got["cpu"]:
+                    raise AssertionError(
+                        f"k={k}: cuda and cpu CLI outputs differ "
+                        f"({inputs}, {deplete})")
+                kept += len(got["cuda"][0])
+        if kept == 0:
+            raise AssertionError("empty CLI output at k=41")
+        launches = {"K1": K.select_compact.launches,
+                    "K2": K.probe_hits.launches,
+                    "K3": K.values_select.launches}
+        if launches["K3"] <= 0 or launches["K2"] <= 0 or launches["K1"]:
+            raise AssertionError(f"k={k} filter launches: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("6 cli at k=41", t0, index_bp=sum(map(len, seqs)),
+        builds=4, index_bytes=json.dumps(sizes), filter_runs=runs,
+        reads_over_budget=over,
+        build_launches=json.dumps(build_launches),
+        filter_launches=json.dumps(launches))
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 4: panhuman scale against an independent reference
 # ---------------------------------------------------------------------------
@@ -336,15 +568,18 @@ def _fmix32(x):
     return x ^ (x >> 16)
 
 
-def reference_minimizers(seqs: list[bytes], units: np.ndarray, dev):
+def reference_minimizers(seqs: list[bytes], units: np.ndarray, dev,
+                         k: int = K_):
     """Filter-side minimizers of every read (the NumPy oracle's rules,
     ops/minimizers_np), computed over one flat arena of all reads on the
-    device: canonical values by span doubling, fmix32 selection keys, the
-    leftmost minimum of every whole window of w k-mers (of all k-mers for
-    a read with fewer than w), ACGT-valid k-mers only. Base codes and
-    validity follow the spec ((byte >> 1) & 3; ACGTacgt) and the hashes
-    are the NumPy XXH3 of utils/xxh3, so no code of the path under test
-    is shared. Returns (unit of each minimizer, its XXH3-64 hash)."""
+    device: canonical values (128-bit as two int64 halves for k > 32)
+    built base by base, fmix32 selection keys of the xor of their 32-bit
+    limbs, the leftmost minimum of every whole window of w k-mers (of all
+    k-mers for a read with fewer than w), ACGT-valid k-mers only. Base
+    codes and validity follow the spec ((byte >> 1) & 3; ACGTacgt) and
+    the hashes are the NumPy XXH3 of utils/xxh3, so no code of the path
+    under test is shared. Returns (unit of each minimizer, its XXH3-64
+    hash)."""
     lens = np.fromiter((len(s) for s in seqs), np.int64, len(seqs))
     arena = np.frombuffer(b"".join(seqs), np.uint8)
     n = arena.size
@@ -354,19 +589,32 @@ def reference_minimizers(seqs: list[bytes], units: np.ndarray, dev):
     bad = torch.from_numpy((~acgt).astype(np.int64)).to(dev)
     read = torch.from_numpy(np.repeat(np.arange(len(seqs)), lens)).to(dev)
     start = torch.from_numpy(starts).to(dev)[read]
-    m_of = torch.from_numpy(lens - K_ + 1).to(dev)[read]  # k-mers per read
+    m_of = torch.from_numpy(lens - k + 1).to(dev)[read]  # k-mers per read
     rel = torch.arange(n, device=dev) - start
 
     def shifted(x, s, fill=0):
         return torch.cat([x[s:], torch.full((s,), fill, dtype=x.dtype,
                                             device=dev)])
 
-    f, r = code, code ^ 2
-    for i in range(1, K_):
-        f = f | (shifted(code, i) << (2 * i))
-        r = (r << 2) | (shifted(code, i) ^ 2)
-    canon = torch.where((f ^ I64_MIN) <= (r ^ I64_MIN), f, r)
-    key = _fmix32((canon & 0xFFFFFFFF) ^ ((canon >> 32) & 0xFFFFFFFF))
+    zero = torch.zeros_like(code)
+    f_lo, f_hi, r_lo, r_hi = code, zero, code ^ 2, zero
+    for i in range(1, k):
+        c = shifted(code, i)
+        if i < 32:
+            f_lo = f_lo | (c << (2 * i))
+        else:
+            f_hi = f_hi | (c << (2 * (i - 32)))
+        r_hi = (r_hi << 2) | lsr(r_lo, 62)
+        r_lo = (r_lo << 2) | (c ^ 2)
+    fh, rh = f_hi ^ I64_MIN, r_hi ^ I64_MIN
+    take_f = (fh < rh) | ((fh == rh) & ((f_lo ^ I64_MIN) <= (r_lo ^ I64_MIN)))
+    lo = torch.where(take_f, f_lo, r_lo)
+    hi = torch.where(take_f, f_hi, r_hi)
+    del f_lo, f_hi, r_lo, r_hi, fh, rh, take_f
+    fold = zero
+    for v in (lo, hi):
+        fold = fold ^ (v & 0xFFFFFFFF) ^ lsr(v, 32)
+    key = _fmix32(fold)
     key = (key >> 16) << 40 | rel  # priority, then leftmost position
     is_kmer = rel < m_of
     big = torch.iinfo(torch.int64).max
@@ -376,7 +624,7 @@ def reference_minimizers(seqs: list[bytes], units: np.ndarray, dev):
     whole = is_kmer & (rel + W_ <= m_of)  # window of w k-mers in the read
     sel = torch.full((n,), -1, dtype=torch.int64, device=dev)
     sel[whole] = start[whole] + (wmin[whole] & ((1 << 40) - 1))
-    short = torch.from_numpy(lens - K_ + 1 <= W_).to(dev)  # one window
+    short = torch.from_numpy(lens - k + 1 <= W_).to(dev)  # one window
     short_read = short[read] & is_kmer
     if bool(short_read.any()):
         smin = torch.full((len(seqs),), big, dtype=torch.int64, device=dev)
@@ -387,17 +635,21 @@ def reference_minimizers(seqs: list[bytes], units: np.ndarray, dev):
     pos = torch.unique(sel[sel >= 0])  # distinct minimizer positions
     csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                       bad.cumsum(0)])
-    ok = (csum[pos + K_] - csum[pos]) == 0
+    ok = (csum[pos + k] - csum[pos]) == 0
     pos = pos[ok]
-    h = xxh3_64_u64(canon[pos].cpu().numpy().view(np.uint64))
+    v_lo = lo[pos].cpu().numpy().view(np.uint64)
+    if k <= 32:
+        h = xxh3_64_u64(v_lo)
+    else:
+        h = xxh3_64_u128(v_lo, hi[pos].cpu().numpy().view(np.uint64))
     return (torch.from_numpy(units).to(dev)[read[pos]],
             torch.from_numpy(h.view(np.int64)).to(dev))
 
 
-def reference_counts(seqs, units, n_units, keys_signed_sorted, dev):
+def reference_counts(seqs, units, n_units, keys_signed_sorted, dev, k):
     """(hits, totals) per unit: searchsorted membership on the sorted index
     keys, distinct member hashes per unit with torch.unique."""
-    unit, h = reference_minimizers(seqs, units, dev)
+    unit, h = reference_minimizers(seqs, units, dev, k)
     totals = torch.bincount(unit, minlength=n_units)
     q = h ^ I64_MIN
     i = torch.searchsorted(keys_signed_sorted, q).clamp(
@@ -496,14 +748,17 @@ def where_time_goes(decider, single, pairs, ont, run_s: float) -> dict:
             "top_device": top_dev, "top_host_self": top_host}
 
 
-def phase4(rng) -> dict:
+def panhuman(rng, k: int, phase: str) -> dict:
+    """Phase 4 (k=31) or 5 (k=41): a panhuman-scale table and ~20 Mbp of
+    reads through DeviceDecider, every unit against the reference."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     genome = rand_seq(rng, 5_000_000)
-    g_hashes = dtt.compute_minimizer_hashes(genome, K_, W_)
+    g_hashes = dtt.compute_minimizer_hashes(genome, k, W_)
     t_keys = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + int(phase))
     keys = torch.randint(I64_MIN, (1 << 63) - 1, (PANHUMAN_KEYS,),
                          device=dev, dtype=torch.int64, generator=gen)
     keys = torch.cat([keys, torch.from_numpy(g_hashes.view(np.int64)).to(dev)])
@@ -512,7 +767,7 @@ def phase4(rng) -> dict:
     torch.cuda.synchronize()
     keys_s = time.perf_counter() - t_keys
     t_tab = time.perf_counter()
-    decider = DeviceDecider(keys_u, K_, W_, "cuda")
+    decider = DeviceDecider(keys_u, k, W_, "cuda")
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t_tab
     table = decider.pipe.table
@@ -524,11 +779,17 @@ def phase4(rng) -> dict:
     pipe = decider.pipe
     pipe.rerun_batches = pipe.rerun_units = 0
     K.select_compact.launches = K.probe_hits.launches = 0
+    K.values_select.launches = 0
     t_run = time.perf_counter()
     decisions = run_decider(decider, single, pairs, ont)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    launches = {"K1": K.select_compact.launches, "K2": K.probe_hits.launches}
+    launches = {"K1": K.select_compact.launches, "K2": K.probe_hits.launches,
+                "K3": K.values_select.launches}
+    wide = k > 32
+    if launches["K2"] <= 0 or launches["K3" if wide else "K1"] <= 0 or (
+            launches["K1" if wide else "K3"] != 0):
+        raise AssertionError(f"k={k}: timed-window launches {launches}")
     reruns = {"batches": pipe.rerun_batches, "units": pipe.rerun_units}
     if reruns["units"] == 0:
         raise AssertionError("no row went over its minimizer budget: the "
@@ -541,7 +802,7 @@ def phase4(rng) -> dict:
         len(single) + len(ont) + np.repeat(np.arange(len(pairs)), 2),
     ])
     hits_ref, tot_ref = reference_counts(seqs, units, n_u, keys_u ^ I64_MIN,
-                                         dev)
+                                         dev, k)
     got_h = np.array([d[1] for d in decisions])
     got_t = np.array([d[2] for d in decisions])
     bad = np.nonzero((got_h != hits_ref) | (got_t != tot_ref))[0]
@@ -552,9 +813,9 @@ def phase4(rng) -> dict:
             f"got {(got_h[i], got_t[i])}, want {(hits_ref[i], tot_ref[i])}")
     t_prof = time.perf_counter()
     split = where_time_goes(decider, single, pairs, ont, run_s)
-    log("4 where the time goes", t_prof, **{
-        k: json.dumps(v) for k, v in split.items()})
-    k2 = k2_on_main_path_stream(decider.pipe, single[:8192])
+    log(f"{phase} where the time goes", t_prof, **{
+        name: json.dumps(v) for name, v in split.items()})
+    k2 = None if wide else k2_on_main_path_stream(decider.pipe, single[:8192])
     numbers = {
         "keys": int(keys_u.numel()), "p": table.p, "sp": table.sp,
         "table_gb": round(table.nbytes / 1e9, 3),
@@ -568,7 +829,7 @@ def phase4(rng) -> dict:
         "max_memory_allocated_gb": round(
             torch.cuda.max_memory_allocated() / 1e9, 3),
     }
-    log("4 panhuman scale", t0, **numbers, k2=json.dumps(k2))
+    log(f"{phase} panhuman scale k={k}", t0, **numbers, k2=json.dumps(k2))
     return {"numbers": numbers, "k2": k2, "launches": launches}
 
 
@@ -631,6 +892,102 @@ def k2_on_main_path_stream(pipe: DevicePipeline, reads: list[bytes]) -> dict:
     return measure_k2(pipe.table, key, srid, first, len(rows))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: index build at scale, against the oracle
+# ---------------------------------------------------------------------------
+
+SCALE_RECORDS, SCALE_RECORD_BP = 26, 4_000_000  # 104 Mbp
+ORACLE_WORKERS, ORACLE_SECONDS = 6, 120
+
+
+def _oracle_hashes(args) -> np.ndarray:
+    seq, k, w = args
+    return dtt.compute_minimizer_hashes(seq, k, w)
+
+
+def phase8_index_scale(rng) -> dict:
+    """index build on the card at k=31 (K1) and k=41 (K3) over a seeded
+    104 Mbp FASTA, timed; then the host oracle in worker processes, record
+    by record, both k interleaved, for at most ORACLE_SECONDS. Each card
+    index must equal, byte for byte, the oracle's over the leading records
+    the oracle finished at both k (the card rebuilds that prefix when it is
+    not the whole FASTA)."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_build_")
+    pool = None
+    try:
+        recs = dirty_records(rng, SCALE_RECORDS, SCALE_RECORD_BP,
+                             SCALE_RECORD_BP + 1)
+        fa = os.path.join(tmp, "genome.fa")
+        write_fasta(fa, recs)
+        n_bp = sum(len(s) for _, s in recs)
+        builds = {}
+        for k in (K_, K_WIDE):
+            out = os.path.join(tmp, f"card{k}.idx")
+            K.select_compact.launches = K.values_select.launches = 0
+            t = time.perf_counter()
+            cli_index_build(fa, out, k, W_, "cuda")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            builds[k] = {"path": out, "s": round(sec, 3),
+                         "mbp_per_s": round(n_bp / 1e6 / sec, 3),
+                         "keys": load_header_and_count(out)[1],
+                         "K1": K.select_compact.launches,
+                         "K3": K.values_select.launches}
+            if builds[k]["K3" if k > 32 else "K1"] <= 0:
+                raise AssertionError(f"index build -k {k}: {builds[k]}")
+        t_or = time.perf_counter()
+        deadline = t_or + ORACLE_SECONDS
+        pool = mp.get_context("spawn").Pool(ORACLE_WORKERS)
+        tasks = [(k, pool.apply_async(_oracle_hashes, ((seq, k, W_),)))
+                 for _, seq in recs for k in (K_, K_WIDE)]
+        done: dict[int, list] = {K_: [], K_WIDE: []}
+        for k, task in tasks:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                break
+            try:
+                done[k].append(task.get(timeout=left))
+            except mp.TimeoutError:
+                break
+        pool.terminate()
+        pool.join()
+        pool = None
+        oracle_s = time.perf_counter() - t_or
+        n_rec = min(len(done[K_]), len(done[K_WIDE]))
+        if n_rec == 0:
+            raise AssertionError("the oracle finished no record in time")
+        checked_bp = sum(len(s) for _, s in recs[:n_rec])
+        if n_rec < len(recs):
+            prefix = os.path.join(tmp, "prefix.fa")
+            write_fasta(prefix, recs[:n_rec])
+        for k in (K_, K_WIDE):
+            card = builds[k].pop("path")
+            if n_rec < len(recs):
+                card = os.path.join(tmp, f"prefix{k}.idx")
+                cli_index_build(prefix, card, k, W_, "cuda")
+            oracle = os.path.join(tmp, f"oracle{k}.idx")
+            dtt.write_index(np.unique(np.concatenate(done[k][:n_rec])),
+                            dtt.IndexHeader.new(k, W_), oracle)
+            if read_bytes(card) != read_bytes(oracle):
+                raise AssertionError(
+                    f"index build -k {k} on the card differs from the "
+                    f"oracle's index over {n_rec} records")
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers = {"mbp": n_bp / 1e6, "records": len(recs),
+               "builds": builds, "oracle_s": round(oracle_s, 3),
+               "oracle_records": n_rec, "oracle_checked_mbp": checked_bp / 1e6}
+    log("8 index build at scale", t0, **{
+        name: json.dumps(v) for name, v in numbers.items()})
+    return numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -649,7 +1006,11 @@ def main() -> int:
     log("1 build", t0, nvcc_s=secs if secs is not None else "cached")
     p2 = phase2(rng)
     launches3 = phase3(rng)
-    p4 = phase4(rng)
+    p4 = panhuman(rng, K_, "4")
+    k3 = phase5_k3(rng)
+    launches6 = phase6_wide_cli(rng)
+    p7 = panhuman(rng, K_WIDE, "7")
+    phase8_index_scale(rng)
     k1, k2 = p2["k1"], p4["k2"]
     kernels = [
         {"name": "K1 select_compact", "route": "cuda",
@@ -669,14 +1030,24 @@ def main() -> int:
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None,
          "shapes": "one (256, 8192) batch stream, panhuman table"},
+        {"name": "K3 values_select", "route": "cuda",
+         "source": "deacon_tpu_torch/csrc/values_select.cu",
+         "replaces": "deacon_tpu/ops/pallas_kernels.py:312",
+         "launches": p7["launches"]["K3"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None,
+         "shapes": "sum over the three default tiles at k=41, w=15"},
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the main path was never launched")
     print(f"[total] {time.perf_counter() - t_all:.3f} s "
-          f"phase3_launches={json.dumps(launches3)}", flush=True)
+          f"phase3_launches={json.dumps(launches3)} "
+          f"phase6_launches={json.dumps(launches6)}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print("kernels: K1 select_compact, K2 radix_probe", flush=True)
+    print("kernels: K1 select_compact, K2 radix_probe, K3 values_select",
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

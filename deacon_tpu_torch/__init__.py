@@ -1,10 +1,11 @@
 """deacon-tpu-torch: the PyTorch/CUDA port of the deacon-tpu read filter.
 
 A package of its own beside ``deacon_tpu``: it imports ``torch`` and
-``numpy`` and nothing of the JAX package. The ``filter`` path runs on an
-NVIDIA card (device "cuda", the default) with two hand-written CUDA
-kernels (csrc/extract.cu, csrc/radix_probe.cu), or on the CPU with their
-plain PyTorch versions when the caller passes device "cpu".
+``numpy`` and nothing of the JAX package. ``index build`` and ``filter``
+run on an NVIDIA card (device "cuda", the default) with three
+hand-written CUDA kernels (csrc/extract.cu, csrc/values_select.cu,
+csrc/radix_probe.cu), or on the CPU with their plain PyTorch versions
+when the caller passes device "cpu".
 """
 
 from .constants import VERSION

@@ -1,6 +1,7 @@
-"""Command-line interface of the port: the ``filter`` subcommand, with the
-flags of the JAX package's filter (ref: src/main.rs:24-155) and
-``--device cuda|cpu`` (default cuda)."""
+"""Command-line interface of the port: ``index build``, ``index info`` and
+``filter``, with the flags of the JAX package's (ref: src/main.rs:9-234)
+and ``--device cuda|cpu`` (default cuda) for ``index build`` and
+``filter``."""
 
 from __future__ import annotations
 
@@ -9,8 +10,12 @@ import sys
 
 from .constants import (
     DEFAULT_ABS_THRESHOLD,
+    DEFAULT_CAPACITY_MILLIONS,
     DEFAULT_COMPRESSION_LEVEL,
+    DEFAULT_KMER_LENGTH,
     DEFAULT_REL_THRESHOLD,
+    DEFAULT_WINDOW_SIZE,
+    MAX_K_BUILD,
     TOOL_NAME,
     VERSION,
 )
@@ -21,6 +26,13 @@ def _abs_threshold(value: str) -> int:
     # ref: src/main.rs:44 — clap value_parser!(u16).range(1..)
     if not 1 <= v <= 65535:
         raise argparse.ArgumentTypeError(f"{v} is not in 1..=65535")
+    return v
+
+
+def _k_build(value: str) -> int:
+    v = int(value)
+    if not 1 <= v <= MAX_K_BUILD:  # ref: src/main.rs:166
+        raise argparse.ArgumentTypeError(f"{v} is not in 1..={MAX_K_BUILD}")
     return v
 
 
@@ -35,6 +47,31 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--version", action="version",
                         version=f"{TOOL_NAME} {VERSION}")
     sub = parser.add_subparsers(dest="command", required=True)
+    p_index = sub.add_parser("index", help="build and inspect minimizer indexes")
+    isub = p_index.add_subparsers(dest="index_command", required=True)
+    p_build = isub.add_parser("build", help="index minimizers within a fastx file")
+    p_build.add_argument("input", help="input fastx path (gz/zst/xz supported)")
+    p_build.add_argument("-k", dest="kmer_length", type=_k_build,
+                         default=DEFAULT_KMER_LENGTH,
+                         help=f"k-mer length (1-{MAX_K_BUILD})")
+    p_build.add_argument("-w", dest="window_size", type=int,
+                         default=DEFAULT_WINDOW_SIZE,
+                         help="minimizer window size")
+    p_build.add_argument("-o", "--output", default="-",
+                         help="output path (- for stdout)")
+    p_build.add_argument("-c", "--capacity", dest="capacity_millions",
+                         type=int, default=DEFAULT_CAPACITY_MILLIONS,
+                         help="preallocated capacity in millions")
+    p_build.add_argument("-t", "--threads", type=int, default=8)
+    p_build.add_argument("-q", "--quiet", action="store_true",
+                         help="suppress sequence header output")
+    p_build.add_argument("-e", "--entropy-threshold", type=float, default=0.0,
+                         help="minimum scaled entropy threshold (0.0-1.0)")
+    p_build.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                         help="compute device (default cuda; never falls back)")
+    p_info = isub.add_parser("info", help="show index information")
+    p_info.add_argument("index", help="path to index file")
+
     p = sub.add_parser(
         "filter",
         help="keep or discard fastx records with sufficient minimizer hits",
@@ -79,6 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
+        if args.command == "index":
+            _run_index(args)
+            return 0
         from .config import FilterConfig
 
         if args.output2 is not None and args.input2 is None:
@@ -114,6 +154,27 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     return 0
+
+
+def _run_index(args) -> None:
+    from .index import build as index_ops
+
+    if args.index_command == "info":
+        index_ops.info(args.index)
+        return
+    from .config import IndexConfig
+
+    IndexConfig(
+        input_path=args.input,
+        kmer_length=args.kmer_length,
+        window_size=args.window_size,
+        output_path=None if args.output == "-" else args.output,
+        capacity_millions=args.capacity_millions,
+        threads=args.threads,
+        quiet=args.quiet,
+        entropy_threshold=args.entropy_threshold,
+        device=args.device,
+    ).execute()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""FilterConfig: the fields ``filter`` reads (ref: src/lib.rs:39-109)."""
+"""FilterConfig and IndexConfig: the fields ``filter`` and ``index build``
+read (ref: src/lib.rs:39-109, 187-226)."""
 
 from __future__ import annotations
 
@@ -6,8 +7,11 @@ from dataclasses import dataclass
 
 from .constants import (
     DEFAULT_ABS_THRESHOLD,
+    DEFAULT_CAPACITY_MILLIONS,
     DEFAULT_COMPRESSION_LEVEL,
+    DEFAULT_KMER_LENGTH,
     DEFAULT_REL_THRESHOLD,
+    DEFAULT_WINDOW_SIZE,
     FILTER_BATCH,
 )
 
@@ -39,3 +43,25 @@ class FilterConfig:
         from .filter.engine import run
 
         run(self)
+
+
+@dataclass
+class IndexConfig:
+    """ref: src/lib.rs:187-226."""
+
+    input_path: str = "-"
+    kmer_length: int = DEFAULT_KMER_LENGTH
+    window_size: int = DEFAULT_WINDOW_SIZE
+    #: None or "-" writes the index to stdout
+    output_path: str | None = None
+    capacity_millions: int = DEFAULT_CAPACITY_MILLIONS
+    threads: int = 8
+    quiet: bool = False
+    entropy_threshold: float = 0.0
+    #: "cuda" (the default) or "cpu"; see device.resolve_device
+    device: str = "cuda"
+
+    def execute(self) -> None:
+        from .index.build import build
+
+        build(self)

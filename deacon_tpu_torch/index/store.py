@@ -134,6 +134,16 @@ def _read_header(buf: np.ndarray, pos: int) -> tuple[IndexHeader, int]:
     return header, pos + 3
 
 
+def load_header_and_count(path: str | Path) -> tuple[IndexHeader, int]:
+    """Header and key count only (ref: src/index.rs:57-72)."""
+    with open(path, "rb") as f:
+        head = f.read(32)
+    buf = np.frombuffer(head, dtype=np.uint8)
+    header, pos = _read_header(buf, 0)
+    count, _ = bincode.decode_uint(memoryview(head), pos)
+    return header, count
+
+
 def load_index(path: str | Path) -> MinimizerIndex:
     """Load a full index file into a sorted uint64 array
     (ref: src/index.rs:80-107). mmap, not read(), so a multi-GB file needs

@@ -115,6 +115,10 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, i64, vp, i32, vp, i32, vp, vp,
         ]
         lib.dx_radix_probe.restype = i32
+        lib.dx_values_select.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp,
+        ]
+        lib.dx_values_select.restype = i32
         _lib = lib
     return _lib
 

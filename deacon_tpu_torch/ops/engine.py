@@ -1,11 +1,16 @@
-"""Device engine: batched minimizer extraction, membership and counting.
+"""Device engine: batched minimizer extraction, membership and counting,
+and the index-build extraction.
 
 One engine step per batch of rows of a tile (L, R), all on the device:
 
-1. K1 (ops/kernels.select_compact, csrc/extract.cu): canonical k-mer
+1. selection into an (R, Br) slot grid (select_slots): for k <= 32, K1
+   (ops/kernels.select_compact, csrc/extract.cu) computes canonical
    values, selection keys, window minima, validity and the per-row
-   compaction of selected minimizers into an (R, Br) slot grid;
-2. XXH3-64 of every slot's value (ops/hash.py);
+   compaction in one kernel; for 33 <= k <= 57, K3
+   (ops/kernels.values_select, csrc/values_select.cu) writes dense value
+   planes and the packed argmin word, and kernels.compact_rows compacts
+   the flagged windows into the same slot grid;
+2. XXH3-64 of every slot's value, 8 or 16 bytes (ops/hash.py);
 3. the probe stream sorted by (hash, read) and K2
    (ops/kernels.probe_hits, csrc/radix_probe.cu): distinct member hashes
    per read unit;
@@ -18,6 +23,11 @@ brings the outputs of every pending batch back in one device-to-host copy.
 A batch whose ``used`` exceeds its slot budget is finished on the device
 too: the units owning the rows over budget run once more with a budget
 that holds every row's minimizers (DevicePipeline._rerun_over_budget).
+
+Index build (IndexBuildPipeline) runs steps 1-2 on IUPAC-canonicalised
+codes, drops k-mers below the entropy threshold (entropy_keep) and hands
+every sequence's hashes to the caller; rows over budget rerun on the
+device as well.
 """
 
 from __future__ import annotations
@@ -25,17 +35,42 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..constants import MAX_K_BUILD, MAX_K_FILTER
 from ..device import resolve_device
-from .hash import xxh3_64
-from .kernels import select_compact
+from . import minimizers_np as mnp
+from .hash import as_i64, lsr, xxh3_64, xxh3_64_u128
+from .kernels import compact_rows, select_compact, values_select
 from .pack import (
+    INDEX_CODE,
     _Row,
+    chunk_rows,
     default_budget_frac,
     pack_rows_packed,
     rows_for_read,
     v4_row_budget,
 )
 from .radix_probe import build_radix_table, radix_probe_hits, totals_grid
+
+
+def select_slots(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
+    """Selected minimizers of every row, compacted in column order into an
+    (R, Br) slot grid: ((R, Br) int32 positions, value planes ([lo] for
+    k <= 32, [lo, hi] for the u128 values of k > 32), (R,) int32 row
+    totals). K1 for k <= 32; K3 and compact_rows above."""
+    if k <= 32:
+        pos, val, tot = select_compact(pc, pv, mlen, allow_short, k=k, w=w,
+                                       Br=Br)
+        return pos, [val], tot
+    lo, hi, wpf = values_select(pc, pv, mlen, allow_short, k=k, w=w)
+    # the dense planes are dropped as soon as the slot grid holds them
+    return compact_rows((wpf >> 16) != 0, wpf & 0xFFFF, [lo, hi], Br)
+
+
+def hash_planes(planes: list[torch.Tensor]) -> torch.Tensor:
+    """XXH3-64 of slot values: 8 bytes for [lo], 16 for [lo, hi]."""
+    if len(planes) == 1:
+        return xxh3_64(planes[0])
+    return xxh3_64_u128(planes[0], planes[1])
 
 
 def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, table, *,
@@ -46,12 +81,12 @@ def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, table, *,
     Units with a row total above ``budget`` have truncated counts."""
     R, Lp = pc.shape
     L = Lp * 4
-    pos_c, val, rt = select_compact(
-        pc, pv, mlen, allow_short, k=k, w=w, Br=budget
-    )
+    pos_c, planes, rt = select_slots(pc, pv, mlen, allow_short, k=k, w=w,
+                                     Br=budget)
     lane = torch.arange(budget, dtype=torch.int32, device=pc.device)
     valid2d = lane[None, :] < torch.clamp(rt, max=budget)[:, None]
-    hashes = xxh3_64(val)
+    hashes = hash_planes(planes)
+    del planes
     hits = radix_probe_hits(
         table, hashes, valid2d, rid[:, None].expand(R, budget),
         num_segments=num_segments,
@@ -62,6 +97,31 @@ def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, table, *,
         k=k, l=l, stride=max(1, L - l + 1), dedup_positions=dedup_positions,
     )
     return torch.cat([hits, totals, rt.max().reshape(1)]).to(torch.int32), rt
+
+
+def upload(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]:
+    """Host arrays -> device tensors in one copy: the arrays are laid out
+    in one pinned buffer that goes over with a non-blocking copy."""
+    if device.type == "cpu":
+        return [torch.from_numpy(a) for a in arrays]
+    offs, total = [], 0
+    for a in arrays:
+        offs.append(total)
+        total += -(-a.nbytes // 8) * 8
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    host = buf.numpy()
+    for a, o in zip(arrays, offs):
+        host[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8
+        )
+    dev = buf.to(device, non_blocking=True)
+    dtypes = {np.dtype(np.uint8): torch.uint8,
+              np.dtype(np.bool_): torch.bool,
+              np.dtype(np.int32): torch.int32}
+    return [
+        dev[o:o + a.nbytes].view(dtypes[a.dtype]).reshape(a.shape)
+        for a, o in zip(arrays, offs)
+    ]
 
 
 class FetchGroup:
@@ -116,10 +176,10 @@ class DevicePipeline:
     def __init__(self, index_hashes, k: int, w: int, tiles=None,
                  device=None):
         self.device = resolve_device(device)
-        if k > 32:
-            raise NotImplementedError(
-                "k > 32 (the wide-k extraction, TPU kernel "
-                "values_select_fused) is a later slice of the port"
+        if not 1 <= k <= MAX_K_FILTER:
+            raise ValueError(
+                "Indexing the bitmask of invalid characters requires "
+                f"k<={MAX_K_FILTER}, but it is {k}"
             )
         self.k, self.w = int(k), int(w)
         self.l = self.k + self.w - 1
@@ -211,30 +271,6 @@ class DevicePipeline:
 
         return resolve
 
-    def _upload(self, arrays: list[np.ndarray]) -> list[torch.Tensor]:
-        """Host arrays -> device tensors in one copy: the arrays are laid
-        out in one pinned buffer that goes over with a non-blocking copy."""
-        if self.device.type == "cpu":
-            return [torch.from_numpy(a) for a in arrays]
-        offs, total = [], 0
-        for a in arrays:
-            offs.append(total)
-            total += -(-a.nbytes // 8) * 8
-        buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-        host = buf.numpy()
-        for a, o in zip(arrays, offs):
-            host[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
-                np.uint8
-            )
-        dev = buf.to(self.device, non_blocking=True)
-        dtypes = {np.dtype(np.uint8): torch.uint8,
-                  np.dtype(np.bool_): torch.bool,
-                  np.dtype(np.int32): torch.int32}
-        return [
-            dev[o:o + a.nbytes].view(dtypes[a.dtype]).reshape(a.shape)
-            for a, o in zip(arrays, offs)
-        ]
-
     def _rerun_over_budget(self, rows, rt, L, budget, hits, totals):
         """Exact (hits, totals) of a batch with rows over budget: the units
         owning those rows run again on the device, with the budget rounded
@@ -260,8 +296,9 @@ class DevicePipeline:
     def _launch_batch(self, rows: list[_Row], L: int, n_units: int,
                       budget: int):
         """Pack and launch one batch; returns (fused output, row totals)."""
-        pc, pv, mlen, allow_short, rid, mate, cstart = self._upload(
-            list(pack_rows_packed(rows, len(rows), L, self.k, self.l))
+        pc, pv, mlen, allow_short, rid, mate, cstart = upload(
+            list(pack_rows_packed(rows, len(rows), L, self.k, self.l)),
+            self.device,
         )
         return engine_step(
             pc, pv, mlen, allow_short, rid, mate, cstart, self.table,
@@ -283,3 +320,248 @@ class DevicePipeline:
     def launch_paired(self, pairs, prefix_length: int):
         units = ((i, [(0, s1), (1, s2)]) for i, (s1, s2) in enumerate(pairs))
         return self.launch_counts(units, len(pairs), prefix_length)
+
+
+# ---------------------------------------------------------------------------
+# Index build
+# ---------------------------------------------------------------------------
+
+_I64_MIN = -(1 << 63)
+_M55 = 0x5555555555555555
+
+
+def entropy_keep_table(k: int, threshold: float) -> np.ndarray:
+    """(k+1)**3 bool table: entry a*(k+1)**2 + c*(k+1) + g is whether a
+    k-mer of a A, c C, g G and k-a-c-g T bases passes the scaled-entropy
+    filter. Each entry is the NumPy oracle's own float32 formula
+    (minimizers_np.scaled_entropy) on a k-mer of that composition, so a
+    lookup is bit-identical to it by construction (the device never does
+    the float math; the sum of the four terms depends on their order, so
+    the table is keyed by the forward strand's counts)."""
+    n = k + 1
+    comps = np.array([(a, c, g) for a in range(n) for c in range(n - a)
+                      for g in range(n - a - c)], dtype=np.int64)
+    a, c, g = comps.T
+    t = k - a - c - g
+    bases = np.tile(np.frombuffer(b"ACGT", np.uint8), len(comps))
+    arena = np.repeat(bases, np.stack([a, c, g, t], axis=1).reshape(-1))
+    ent = mnp.scaled_entropy(arena, np.arange(len(comps)) * k, k)
+    table = np.zeros(n ** 3, dtype=bool)
+    table[a * n * n + c * n + g] = ent >= np.float32(threshold)
+    return table
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    x = x - (lsr(x, 1) & _M55)
+    x = (x & 0x3333333333333333) + (lsr(x, 2) & 0x3333333333333333)
+    x = (x + lsr(x, 4)) & 0x0F0F0F0F0F0F0F0F
+    return lsr(x * 0x0101010101010101, 56)
+
+
+def forward_values(pc: torch.Tensor, pos: torch.Tensor, k: int):
+    """Forward (not canonical) k-mer values at (R, Br) slot positions,
+    read from the packed rows: bits [2p, 2p + 2k) of row r's little-endian
+    code stream. Returns (lo, hi) int64 (hi is zero for k <= 32)."""
+    R = pc.shape[0]
+    words = torch.cat([
+        pc.contiguous().view(torch.int64),
+        torch.zeros((R, 2), dtype=torch.int64, device=pc.device),
+    ], dim=1)
+    p = pos.to(torch.int64)
+    wi = p // 32
+    off = 2 * (p % 32)
+    w0, w1, w2 = (words.gather(1, wi + j) for j in range(3))
+    sh = off.clamp(min=2)  # shifts of 64 are undefined; off == 0 is apart
+    low_mask = (torch.ones_like(sh) << (64 - sh)) - 1
+
+    def funnel(a, b):  # bits [off, off + 64) of the 128-bit (a, b)
+        return torch.where(off == 0, a, ((a >> sh) & low_mask) | (b << (64 - sh)))
+
+    lo, hi = funnel(w0, w1), funnel(w1, w2)
+    if k <= 32:
+        mask = -1 if k == 32 else (1 << (2 * k)) - 1
+        return lo & mask, torch.zeros_like(lo)
+    return lo, hi & ((1 << (2 * k - 64)) - 1)
+
+
+def _code_counts(lo: torch.Tensor, hi: torch.Tensor, k: int, code: int):
+    """Bases of 2-bit code ``code`` among the k codes of (lo, hi)."""
+    pat = as_i64(code * _M55)
+    n = torch.zeros_like(lo)
+    for v, nb in ((lo, min(2 * k, 64)), (hi, 2 * k - 64)):
+        if nb <= 0:
+            continue
+        x = ~(v ^ pat)
+        x = x & lsr(x, 1) & _M55
+        if nb < 64:
+            x = x & ((1 << nb) - 1)
+        n = n + _popcount64(x)
+    return n
+
+
+def entropy_keep(pc: torch.Tensor, pos: torch.Tensor, keep_table, k: int):
+    """(R, Br) bool: the k-mer at each slot passes the entropy filter
+    (ref: src/minimizers.rs:73-121). Its forward composition (codes A=0,
+    C=1, T=2, G=3) indexes entropy_keep_table. Exact at every slot whose
+    k-mer is all ACGT, the only slots an index keeps; there the packed
+    (IUPAC-canonicalised) codes are the original bytes' codes."""
+    lo, hi = forward_values(pc, pos, k)
+    n = k + 1
+    a, c, g = (_code_counts(lo, hi, k, code) for code in (0, 1, 3))
+    return keep_table[a * n * n + c * n + g]
+
+
+def extract_step(pc, pv, mlen, allow_short, keep_table, *, k: int, w: int,
+                 Br: int):
+    """Index-build extraction of one batch (ref: src/minimizers.rs:125-191):
+    ((R, Br) int64 hashes, (R, Br) bool valid slots, (R,) int32 row
+    totals). A row whose total exceeds Br has only its first Br slots."""
+    pos, planes, rt = select_slots(pc, pv, mlen, allow_short, k=k, w=w,
+                                   Br=Br)
+    lane = torch.arange(Br, dtype=torch.int32, device=pc.device)
+    valid = lane[None, :] < torch.clamp(rt, max=Br)[:, None]
+    if keep_table is not None:
+        valid &= entropy_keep(pc, pos, keep_table, k)
+    return hash_planes(planes), valid, rt
+
+
+class IndexBuildPipeline:
+    """Device index-build extraction (ref: src/minimizers.rs:125-191).
+
+    Sequences are IUPAC-canonicalised before selection; validity and the
+    optional entropy filter follow the original bytes. Rows take the
+    filter's tile classes and chunk rule (pack.chunk_rows) without its
+    prefix cut or newline strip. A row selecting more minimizers than its
+    slot budget runs again on the device with a budget that holds them
+    all (``rerun_rows`` counts those rows)."""
+
+    DEFAULT_TILES = DevicePipeline.DEFAULT_TILES
+    #: batches launched before their results are collected
+    RESOLVE_DEPTH = 64
+
+    def __init__(self, k: int, w: int, entropy_threshold: float = 0.0,
+                 tiles=None, device=None):
+        if not 1 <= k <= MAX_K_BUILD or w < 1:
+            raise ValueError(
+                f"index build needs 1 <= k <= {MAX_K_BUILD} and w >= 1 "
+                f"(k={k}, w={w})"
+            )
+        self.device = resolve_device(device)
+        self.k, self.w = int(k), int(w)
+        self.l = self.k + self.w - 1
+        self.budget_frac = default_budget_frac(self.w)
+        tiles = tiles or self.DEFAULT_TILES
+        self.tiles = [(int(L), int(R)) for L, R in tiles if L >= self.l]
+        if not self.tiles:
+            self.tiles = [(-(-self.l // 128) * 128, 512)]
+        self.L_max = self.tiles[-1][0]
+        self._stride = self.L_max - self.l + 1
+        self.entropy = float(entropy_threshold)
+        self._keep_table = None
+        if self.entropy != 0.0 and self.k >= 10:
+            self._keep_table = torch.from_numpy(
+                entropy_keep_table(self.k, self.entropy)
+            ).to(self.device)
+        self.rerun_rows = 0
+
+    def _tile_for(self, n: int) -> tuple[int, int]:
+        for L, R in self.tiles:
+            if n <= L:
+                return (L, R)
+        return self.tiles[-1]
+
+    def _launch(self, rows: list[_Row], L: int, Br: int):
+        pc, pv, mlen, allow_short, rid = upload(
+            list(pack_rows_packed(rows, len(rows), L, self.k, self.l,
+                                  code_table=INDEX_CODE)[:5]),
+            self.device,
+        )
+        h, valid, rt = extract_step(pc, pv, mlen, allow_short,
+                                    self._keep_table, k=self.k, w=self.w,
+                                    Br=Br)
+        return h, valid, rt, rid
+
+    def _collect(self, launched, out_h, out_r) -> None:
+        """Hashes and record ids of the valid slots of launched batches;
+        rows over budget are dropped from their batch and rerun."""
+        used = torch.stack([b[4].max() for b in launched]).cpu().numpy()
+        for (rows, L, Br, h, rt, rid, valid), top in zip(launched, used):
+            if top > Br:
+                row_tot = rt.cpu().numpy()
+                over = np.nonzero(row_tot > Br)[0]
+                valid &= (rt <= Br)[:, None]
+                need = min(L, -(-int(row_tot[over].max()) // 128) * 128)
+                sel = [rows[i] for i in over]
+                h2, valid2, _, rid2 = self._launch(sel, L, need)
+                out_h.append(h2[valid2])
+                out_r.append(rid2[:, None].expand_as(h2)[valid2])
+                self.rerun_rows += over.size
+            out_h.append(h[valid])
+            out_r.append(rid[:, None].expand_as(h)[valid])
+
+    def extract_batch(self, seqs: list[bytes]):
+        """-> ((n,) int64 hashes, (n,) int64 sequence index) on the device:
+        every minimizer hash of every sequence (duplicates possible)."""
+        per_tile: dict[tuple[int, int], list[_Row]] = {}
+        for i, s in enumerate(seqs):
+            for row in chunk_rows(i, 0, s, k=self.k, l=self.l,
+                                  stride=self._stride, max_len=self.L_max):
+                per_tile.setdefault(self._tile_for(len(row.seq)),
+                                    []).append(row)
+        out_h: list[torch.Tensor] = []
+        out_r: list[torch.Tensor] = []
+        launched = []
+        for (L, R), rows in per_tile.items():
+            Br = v4_row_budget(L, self.w, self.budget_frac)
+            for a in range(0, len(rows), R):
+                chunk = rows[a:a + R]
+                h, valid, rt, rid = self._launch(chunk, L, Br)
+                launched.append((chunk, L, Br, h, rt, rid, valid))
+                if len(launched) >= self.RESOLVE_DEPTH:
+                    self._collect(launched, out_h, out_r)
+                    launched = []
+        if launched:
+            self._collect(launched, out_h, out_r)
+        if not out_h:
+            z = torch.zeros(0, dtype=torch.int64, device=self.device)
+            return z, z.clone()
+        return torch.cat(out_h), torch.cat(out_r).to(torch.int64)
+
+
+class DistinctHashes:
+    """The distinct u64 hashes seen so far, on the device, kept sorted in
+    unsigned order (as int64 with the sign bit flipped); the index build's
+    set (ref: src/index.rs:266-284)."""
+
+    def __init__(self, device):
+        self.flipped = torch.zeros(0, dtype=torch.int64, device=device)
+
+    def __len__(self) -> int:
+        return int(self.flipped.numel())
+
+    def add(self, hashes: torch.Tensor, seq: torch.Tensor,
+            n_seqs: int) -> np.ndarray:
+        """Add every sequence's hashes in order; returns the (n_seqs,)
+        running distinct totals after each sequence."""
+        before = len(self)
+        q = hashes ^ _I64_MIN
+        o = torch.argsort(seq, stable=True)
+        q, seq = q[o], seq[o]
+        o = torch.argsort(q, stable=True)
+        q, seq = q[o], seq[o]
+        first = torch.ones_like(q, dtype=torch.bool)
+        if q.numel() > 1:
+            first[1:] = q[1:] != q[:-1]
+        q, seq = q[first], seq[first]  # each key at its first sequence
+        if before and q.numel():
+            i = torch.searchsorted(self.flipped, q).clamp(max=before - 1)
+            new = self.flipped[i] != q
+            q, seq = q[new], seq[new]
+        new_per = torch.bincount(seq, minlength=n_seqs)
+        if q.numel():
+            self.flipped = torch.sort(torch.cat([self.flipped, q])).values
+        return before + new_per.cumsum(0).cpu().numpy()
+
+    def sorted_u64(self) -> np.ndarray:
+        """The set as a sorted uint64 array on the host."""
+        return (self.flipped ^ _I64_MIN).cpu().numpy().view(np.uint64)

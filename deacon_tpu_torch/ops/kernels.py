@@ -1,9 +1,11 @@
-"""The port's two CUDA kernels: wrappers, plain PyTorch versions, counters.
+"""The port's CUDA kernels: wrappers, plain PyTorch versions, counters.
 
 * K1 ``select_compact`` (csrc/extract.cu) replaces the TPU kernel
   ``select_compact_packed`` (deacon_tpu/ops/pallas_kernels.py).
 * K2 ``probe_hits`` (csrc/radix_probe.cu) replaces the TPU kernel
   ``radix_probe_hits`` (deacon_tpu/ops/radix_probe.py).
+* K3 ``values_select`` (csrc/values_select.cu) replaces the TPU kernel
+  ``values_select_fused`` (deacon_tpu/ops/pallas_kernels.py).
 
 A wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel on the current stream (no synchronisation)
@@ -62,15 +64,64 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def select_compact_plain(pc, pv, mlen, allow_short, *, k: int, w: int,
-                         Br: int):
-    """Plain PyTorch version of K1 (the same function as the kernel).
+def _next_pow2(k: int) -> int:
+    s = 1
+    while s < k:
+        s *= 2
+    return s
 
-    pc (R, L/4) uint8 packed codes, pv (R, L/8) uint8 validity bits,
-    mlen (R,) int32 k-mer counts (-1 for an unused row), allow_short (R,)
-    bool. Returns ((R, Br) int32 minimizer positions, (R, Br) int64
-    canonical values, (R,) int32 row totals); slots at or past a row's
-    total hold zeros here and are unspecified in general."""
+
+def _shl128(lo, hi, n: int):
+    """(lo, hi) u128 bit patterns << n (static 0 < n <= 64)."""
+    if n == 64:
+        return torch.zeros_like(lo), lo
+    return lo << n, (hi << n) | lsr(lo, 64 - n)
+
+
+def _shr128(lo, hi, n: int):
+    """(lo, hi) u128 bit patterns >> n, logical (static 0 < n < 64)."""
+    return lsr(lo, n) | (hi << (64 - n)), lsr(hi, n)
+
+
+def _canonical_plain(codes: torch.Tensor, k: int):
+    """Canonical k-mer value min(fwd, revcomp) at every column of (R, L)
+    int64 codes, by span doubling to S = next_pow2(k) and a trim (bases
+    past L count as 0 on both strands). Returns [lo] for k <= 32, else
+    [lo, hi] (u64 halves of the u128 value, as int64)."""
+    S = _next_pow2(k)
+    if k <= 32:
+        f, r = codes, codes ^ 2
+        s = 1
+        while s < S:
+            f = f | (_shift_cols(f, s, 0) << (2 * s))
+            r = (r << (2 * s)) | _shift_cols(r, s, 0)
+            s *= 2
+        if S != k:
+            f = f & ((1 << (2 * k)) - 1)
+            r = lsr(r, 2 * (S - k))
+        take_f = (f ^ _I64_MIN) <= (r ^ _I64_MIN)  # unsigned f <= r
+        return [torch.where(take_f, f, r)]
+    zero = torch.zeros_like(codes)
+    f, r = (codes, zero), (codes ^ 2, zero)
+    s = 1
+    while s < S:
+        g = _shl128(_shift_cols(f[0], s, 0), _shift_cols(f[1], s, 0), 2 * s)
+        f = (f[0] | g[0], f[1] | g[1])
+        g = _shl128(r[0], r[1], 2 * s)
+        r = (g[0] | _shift_cols(r[0], s, 0), g[1] | _shift_cols(r[1], s, 0))
+        s *= 2
+    f = (f[0], f[1] & ((1 << (2 * k - 64)) - 1))
+    r = _shr128(r[0], r[1], 2 * (S - k))
+    fh, rh = f[1] ^ _I64_MIN, r[1] ^ _I64_MIN
+    take_f = (fh < rh) | ((fh == rh) & ((f[0] ^ _I64_MIN) <= (r[0] ^ _I64_MIN)))
+    return [torch.where(take_f, f[0], r[0]), torch.where(take_f, f[1], r[1])]
+
+
+def _select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
+    """The selection both extraction kernels compute, in plain PyTorch:
+    (canonical value planes at every column ([lo] or [lo, hi], see
+    _canonical_plain), (R, L) int64 leftmost window minimum wp, (R, L)
+    bool final candidate flag)."""
     R, Lp = pc.shape
     L = Lp * 4
     dev = pc.device
@@ -82,25 +133,14 @@ def select_compact_plain(pc, pv, mlen, allow_short, *, k: int, w: int,
     valid = torch.stack(
         [(pv64 >> j) & 1 for j in range(8)], dim=2
     ).reshape(R, L)
-    # canonical values by span doubling (bases past L count as 0)
-    S = 1
-    while S < k:
-        S *= 2
-    f, r = codes, codes ^ 2
-    s = 1
-    while s < S:
-        f = f | (_shift_cols(f, s, 0) << (2 * s))
-        r = (r << (2 * s)) | _shift_cols(r, s, 0)
-        s *= 2
-    if S != k:
-        f = f & ((1 << (2 * k)) - 1)
-        r = lsr(r, 2 * (S - k))
-    take_f = (f ^ _I64_MIN) <= (r ^ _I64_MIN)  # unsigned f <= r
-    canon = torch.where(take_f, f, r)
+    canon = _canonical_plain(codes, k)
+    fold = torch.zeros_like(codes)
+    for v in canon:
+        fold = fold ^ (v & _M32) ^ lsr(v, 32)
     col = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     m = mlen.to(torch.int64)[:, None]
     in_row = col < m
-    prio = _fmix32((canon & _M32) ^ lsr(canon, 32)) & 0xFFFF0000
+    prio = _fmix32(fold) & 0xFFFF0000
     t = torch.where(in_row, prio, 0xFFFF0000) | col
     # k-mer validity: no invalid base in [c, c+k), the row's end included
     inv = torch.cat([
@@ -117,8 +157,6 @@ def select_compact_plain(pc, pv, mlen, allow_short, *, k: int, w: int,
     if w - span > 0:
         t = torch.minimum(t, _shift_cols(t, w - span, _M32))
     wp = torch.clamp(t & 0xFFFF, max=L - 1)
-    vsel = canon.gather(1, wp)
-    kv_sel = kv.gather(1, wp)
     prev = torch.cat([
         torch.full((R, 1), -1, dtype=torch.int64, device=dev), wp[:, :-1]
     ], dim=1)
@@ -126,17 +164,51 @@ def select_compact_plain(pc, pv, mlen, allow_short, *, k: int, w: int,
     win_valid = (col <= m - w) | (
         (col == 0) & allow_short.to(torch.bool)[:, None] & (m >= 1)
     )
-    flag = win_valid & new_min & kv_sel
-    cs = flag.to(torch.int64).cumsum(dim=1)
-    tot = cs[:, -1].to(torch.int32)
+    flag = win_valid & new_min & kv.gather(1, wp)
+    return canon, wp, flag
+
+
+def compact_rows(flag: torch.Tensor, wp: torch.Tensor,
+                 planes: list[torch.Tensor], Br: int):
+    """Order-preserving per-row compaction of flagged windows into an
+    (R, Br) slot grid: slot j of row r gets the j-th flagged column's wp
+    and plane values. Returns ((R, Br) int32 positions, [(R, Br) planes],
+    (R,) int32 row totals, which count past Br). Slots at or past a row's
+    total hold zeros. One scatter per plane with no host synchronisation:
+    windows not kept go to a dump slot past the grid."""
+    R, L = flag.shape
+    dev = flag.device
+    cs = flag.to(torch.int32).cumsum(dim=1)
     keep = flag & (cs <= Br)
-    dest = (torch.arange(R, dtype=torch.int64, device=dev)[:, None] * Br
-            + cs - 1)[keep]
-    pos = torch.zeros(R * Br, dtype=torch.int32, device=dev)
-    val = torch.zeros(R * Br, dtype=torch.int64, device=dev)
-    pos[dest] = wp[keep].to(torch.int32)
-    val[dest] = vsel[keep]
-    return pos.reshape(R, Br), val.reshape(R, Br), tot
+    dest = torch.where(
+        keep,
+        torch.arange(R, dtype=torch.int64, device=dev)[:, None] * Br
+        + cs.to(torch.int64) - 1,
+        R * Br,
+    ).reshape(-1)
+
+    def scatter(x, dtype):
+        out = torch.zeros(R * Br + 1, dtype=dtype, device=dev)
+        out.scatter_(0, dest, x.reshape(-1).to(dtype))
+        return out[:-1].reshape(R, Br)
+
+    return (scatter(wp, torch.int32),
+            [scatter(x, torch.int64) for x in planes],
+            cs[:, -1].contiguous())
+
+
+def select_compact_plain(pc, pv, mlen, allow_short, *, k: int, w: int,
+                         Br: int):
+    """Plain PyTorch version of K1 (the same function as the kernel).
+
+    pc (R, L/4) uint8 packed codes, pv (R, L/8) uint8 validity bits,
+    mlen (R,) int32 k-mer counts (-1 for an unused row), allow_short (R,)
+    bool. Returns ((R, Br) int32 minimizer positions, (R, Br) int64
+    canonical values, (R,) int32 row totals); slots at or past a row's
+    total hold zeros here and are unspecified in general."""
+    (canon,), wp, flag = _select_plain(pc, pv, mlen, allow_short, k=k, w=w)
+    pos, (val,), tot = compact_rows(flag, wp, [canon.gather(1, wp)], Br)
+    return pos, val, tot
 
 
 def select_compact(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
@@ -174,6 +246,61 @@ def select_compact(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
 
 
 select_compact.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: wide-k selection (dense value planes)
+# ---------------------------------------------------------------------------
+
+def values_select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
+    """Plain PyTorch version of K3 (the same function as the kernel).
+
+    Inputs as select_compact_plain. Returns three dense (R, L) planes: the
+    low and high 64 bits (int64) of the canonical value of the k-mer
+    selected for the window starting at each column (the value at wp; the
+    high half is zero when k <= 32), and int32 ``wpf`` = wp | flag << 16
+    (flag: window valid, a new minimum, and a valid k-mer at wp)."""
+    canon, wp, flag = _select_plain(pc, pv, mlen, allow_short, k=k, w=w)
+    lo = canon[0].gather(1, wp)
+    hi = canon[1].gather(1, wp) if k > 32 else torch.zeros_like(lo)
+    wpf = (wp | (flag.to(torch.int64) << 16)).to(torch.int32)
+    return lo, hi, wpf
+
+
+def values_select(pc, pv, mlen, allow_short, *, k: int, w: int):
+    """K3 wrapper: same arguments and results as values_select_plain.
+    Constraints: 1 <= k <= 57, 128 | L <= 16384."""
+    R, Lp = pc.shape
+    L = Lp * 4
+    if not (1 <= k <= 57 and w >= 1):
+        raise ValueError(f"values_select supports 1 <= k <= 57, got k={k}")
+    if L % 128 or not 0 < L <= 16384:
+        raise ValueError(f"values_select: bad tile L={L}")
+    dev = pc.device
+    _require(pc, "packed codes", torch.uint8, (R, L // 4), dev)
+    _require(pv, "packed validity", torch.uint8, (R, L // 8), dev)
+    _require(mlen, "mlen", torch.int32, (R,), dev)
+    _require(allow_short, "allow_short", torch.bool, (R,), dev)
+    if dev.type == "cpu":
+        return values_select_plain(pc, pv, mlen, allow_short, k=k, w=w)
+    if dev.type != "cuda":
+        raise ValueError(f"values_select: unsupported device {dev}")
+    from . import _build
+
+    lib = _build.library()
+    lo = torch.empty((R, L), dtype=torch.int64, device=dev)
+    hi = torch.empty((R, L), dtype=torch.int64, device=dev)
+    wpf = torch.empty((R, L), dtype=torch.int32, device=dev)
+    err = lib.dx_values_select(
+        _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(lo),
+        _ptr(hi), _ptr(wpf), R, L, k, w, _stream(dev),
+    )
+    _build.check(err, "values_select launch")
+    values_select.launches += 1
+    return lo, hi, wpf
+
+
+values_select.launches = 0
 
 
 # ---------------------------------------------------------------------------

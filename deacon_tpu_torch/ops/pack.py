@@ -14,7 +14,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .minimizers_np import PACK_CODE, VALID_BASE
+from .minimizers_np import IUPAC_CANON, PACK_CODE, VALID_BASE
+
+#: index-side codes: IUPAC bytes canonicalised to ACGT, then packed
+#: (ref: src/minimizers.rs:24-43)
+INDEX_CODE = PACK_CODE[IUPAC_CANON]
 
 
 @dataclass
@@ -25,12 +29,31 @@ class _Row:
     seq: bytes  # effective chunk bytes
 
 
+def chunk_rows(rid: int, mate: int, seq: bytes, *, k: int, l: int,
+               stride: int, max_len: int) -> list[_Row]:
+    """Rows of one sequence as given: none below k bases, one row up to
+    max_len bases, else chunks of max_len bases starting every ``stride``
+    bases while a whole window (l = k + w - 1 bases) remains, so every
+    w-window lands in exactly one chunk. The filter (rows_for_read) and
+    index build (engine.IndexBuildPipeline) both chunk here."""
+    n = len(seq)
+    if n < k:
+        return []
+    if n <= max_len:
+        return [_Row(rid, mate, 0, seq)]
+    rows = []
+    s = 0
+    while s <= n - l:
+        rows.append(_Row(rid, mate, s, seq[s : s + max_len]))
+        s += stride
+    return rows
+
+
 def rows_for_read(rid: int, mate: int, seq: bytes, prefix_length: int,
                   *, k: int, l: int, stride: int, max_len: int):
     """Split one read into device rows: prefix truncation, one trailing
-    newline stripped (ref: src/filter_common.rs:222-229), and chunking at
-    the overlap-preserving stride so every w-window lands in exactly one
-    chunk."""
+    newline stripped (ref: src/filter_common.rs:222-229), then
+    chunk_rows."""
     if len(seq) < k:
         return []
     eff = seq
@@ -38,24 +61,18 @@ def rows_for_read(rid: int, mate: int, seq: bytes, prefix_length: int,
         eff = eff[:prefix_length]
     if eff.endswith(b"\n"):
         eff = eff[:-1]
-    n = len(eff)
-    if n < k:
-        return []
-    if n <= max_len:
-        return [_Row(rid, mate, 0, eff)]
-    rows = []
-    s = 0
-    while s <= n - l:
-        rows.append(_Row(rid, mate, s, eff[s : s + max_len]))
-        s += stride
-    return rows
+    return chunk_rows(rid, mate, eff, k=k, l=l, stride=stride,
+                      max_len=max_len)
 
 
-def pack_rows_packed(rows: list[_Row], R: int, L: int, k: int, l: int):
+def pack_rows_packed(rows: list[_Row], R: int, L: int, k: int, l: int,
+                     code_table: np.ndarray = PACK_CODE):
     """Rows -> (packed_codes (R, L/4) u8, packed_valid (R, L/8) u8,
     mlen, allow_short, rid, mate, cstart), vectorized: one arena concat,
     two table lookups and one flat scatter (ref: src/filter_common.rs:238).
-    Unused rows have mlen -1."""
+    Codes come from ``code_table`` (byte -> 2-bit code; index build passes
+    INDEX_CODE), validity from the bytes themselves. Unused rows have
+    mlen -1."""
     n = len(rows)
     codes = np.zeros((R, L), dtype=np.uint8)
     validb = np.zeros((R, L), dtype=bool)
@@ -71,7 +88,7 @@ def pack_rows_packed(rows: list[_Row], R: int, L: int, k: int, l: int):
         row_of = np.repeat(np.arange(n, dtype=np.int64), lens)
         offs = np.arange(arena.size, dtype=np.int64) - np.repeat(starts, lens)
         dest = row_of * L + offs
-        codes.reshape(-1)[dest] = PACK_CODE[arena]
+        codes.reshape(-1)[dest] = code_table[arena]
         validb.reshape(-1)[dest] = VALID_BASE[arena]
         mlen[:n] = lens - (k - 1)
         allow_short[:n] = lens < l

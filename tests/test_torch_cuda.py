@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain PyTorch versions, exact.
+"""K1, K2 and K3 on the card against their plain PyTorch versions, exact.
 
 Marked ``cuda``: each test asks a fixture whether a card is present and
 skips without one (the decision is never taken at import or collection,
@@ -58,6 +58,20 @@ def test_k1_kernel_matches_plain(cuda, k, w, L, R):
     assert torch.equal(val[live], pval[live])
 
 
+@pytest.mark.parametrize("k,w,L,R", [(41, 15, 256, 64), (56, 9, 2048, 16),
+                                     (57, 15, 16384, 8), (31, 15, 2048, 16),
+                                     (41, 15, 16384, 512)])
+def test_k3_kernel_matches_plain(cuda, k, w, L, R):
+    rng = np.random.default_rng(k + w + L + 1)
+    args = [a.to(cuda) for a in _tile(rng, R, L, k, w)]
+    got = tk.values_select(*args, k=k, w=w)
+    want = tk.values_select_plain(*args, k=k, w=w)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert int((got[2] >> 16).sum()) > 0
+
+
 @pytest.mark.parametrize("spill", [False, True])
 def test_k2_kernel_matches_plain(cuda, spill):
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -109,3 +123,49 @@ def test_pipeline_on_card_matches_cpu(cuda):
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g, w_)
     assert pipe.rerun_units >= 2
+
+
+def test_wide_k_pipeline_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(4)
+    genome = rng.choice(_B, size=100_000).tobytes()
+    from deacon_tpu_torch.ops.minimizers_np import compute_minimizer_hashes
+
+    idx = np.unique(compute_minimizer_hashes(genome, 41, 15))
+    seqs = []
+    for _ in range(200):
+        n = int(rng.integers(41, 3000))
+        s = int(rng.integers(0, len(genome) - n))
+        seqs.append(genome[s:s + n] if rng.random() < 0.5
+                    else rng.choice(_B, size=n).tobytes())
+    seqs[5] = genome[:300] + b"A" * 700
+    seqs[50] = b"CAG" * 300 + genome[900:1000]
+    pairs = list(zip(seqs[::2], seqs[1::2]))
+    tiles = ((256, 64), (1024, 32))
+    pipe = DevicePipeline(idx, 41, 15, tiles=tiles, device=cuda)
+    ref = DevicePipeline(idx, 41, 15, tiles=tiles, device="cpu")
+    tk.values_select.launches = 0
+    for got, want in ((pipe.counts_single(seqs, 0), ref.counts_single(seqs, 0)),
+                      (pipe.counts_paired(pairs, 0),
+                       ref.counts_paired(pairs, 0))):
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(g, w_)
+    assert pipe.rerun_units >= 2 and tk.values_select.launches > 0
+
+
+@pytest.mark.parametrize("k,e", [(31, 0.0), (41, 0.5), (57, 0.0)])
+def test_index_build_on_card_matches_cpu(cuda, k, e):
+    from deacon_tpu_torch.ops.engine import DistinctHashes, IndexBuildPipeline
+
+    rng = np.random.default_rng(k)
+    seqs = [rng.choice(_B, size=int(n)).tobytes()
+            for n in rng.integers(10, 40_000, 20)]
+    seqs[3] = b"ACAC" * 600 + seqs[3]
+    seqs[4] = seqs[4][:500] + b"NNRYK" * 30 + seqs[4][500:].lower()
+    keys = []
+    for dev in (cuda, "cpu"):
+        pipe = IndexBuildPipeline(k, 15, e, device=dev)
+        d = DistinctHashes(pipe.device)
+        running = d.add(*pipe.extract_batch(seqs), len(seqs))
+        keys.append((d.sorted_u64(), running))
+    np.testing.assert_array_equal(keys[0][0], keys[1][0])
+    np.testing.assert_array_equal(keys[0][1], keys[1][1])

@@ -19,10 +19,11 @@ from deacon_tpu.ops import pallas_kernels as jpk  # noqa: E402
 from deacon_tpu.ops import radix_probe as jrp  # noqa: E402
 from deacon_tpu.ops import u64pair  # noqa: E402
 from deacon_tpu.utils import xxh3 as jxxh3  # noqa: E402
+from deacon_tpu_torch.ops import engine as teng  # noqa: E402
 from deacon_tpu_torch.ops import kernels as tk  # noqa: E402
 from deacon_tpu_torch.ops import pack as tpack  # noqa: E402
 from deacon_tpu_torch.ops import radix_probe as trp  # noqa: E402
-from deacon_tpu_torch.ops.hash import xxh3_64  # noqa: E402
+from deacon_tpu_torch.ops.hash import xxh3_64, xxh3_64_u128  # noqa: E402
 
 _B = np.frombuffer(b"ACGT", np.uint8)
 
@@ -51,6 +52,26 @@ def test_xxh3_matches_numpy_and_u32_pair_versions():
     )
     pair = np.asarray(lo).astype(np.uint64) | (
         np.asarray(hi).astype(np.uint64) << np.uint64(32)
+    )
+    np.testing.assert_array_equal(got, pair)
+
+
+def _u32_pair(v: np.ndarray):
+    return (jnp.asarray((v & 0xFFFFFFFF).astype(np.uint32)),
+            jnp.asarray((v >> np.uint64(32)).astype(np.uint32)))
+
+
+def test_xxh3_u128_matches_numpy_and_u32_pair_versions():
+    rng = np.random.default_rng(12)
+    lo = rng.integers(0, 2**64, 50_000, dtype=np.uint64)
+    hi = rng.integers(0, 2**64, 50_000, dtype=np.uint64)
+    lo[:6] = [0, 2**64 - 1, 0, 2**63, 1, 2**32]
+    hi[:6] = [0, 2**64 - 1, 2**63, 0, 2**32 - 1, 0]
+    got = _u64(xxh3_64_u128(_i64(lo), _i64(hi)))
+    np.testing.assert_array_equal(got, jxxh3.xxh3_64_u128(lo, hi))
+    plo, phi = u64pair.xxh3_64_pair_u128(_u32_pair(lo), _u32_pair(hi))
+    pair = np.asarray(plo).astype(np.uint64) | (
+        np.asarray(phi).astype(np.uint64) << np.uint64(32)
     )
     np.testing.assert_array_equal(got, pair)
 
@@ -182,6 +203,149 @@ def test_k1_chunked_long_reads_match_oracle():
         assert int(tot[i]) == p.size
         np.testing.assert_array_equal(pos[i, :p.size].numpy(), p)
         np.testing.assert_array_equal(hashes[i, :p.size], h)
+
+
+# ---------------------------------------------------------------------------
+# K3: wide-k selection, and the index-side entropy filter
+# ---------------------------------------------------------------------------
+
+def _k3_tile(k, w):
+    """The dirty, short and unused rows of tests/test_pallas_kernels.py's
+    values_select_fused case."""
+    rng = np.random.default_rng(3)
+    R, L = 16, 640
+    codes = rng.integers(0, 4, (R, L)).astype(np.uint8)
+    validb = rng.random((R, L)) > 0.05
+    mlen = rng.integers(-1, L - k + 2, (R,)).astype(np.int32)
+    mlen[0] = L - k + 1
+    mlen[1] = 0
+    allow = rng.random(R) > 0.5
+    mlen[2] = k + w - 1 - k  # short read: single window via allow_short
+    allow[2] = True
+    mlen[3] = -1
+    return codes, validb, mlen, allow
+
+
+@pytest.mark.parametrize("k,w", [(31, 15), (21, 7), (41, 15), (56, 9)])
+def test_k3_plain_matches_pallas_interpret(k, w):
+    codes, validb, mlen, allow = _k3_tile(k, w)
+    want_v, want_wpf = jpk.values_select_fused(
+        jnp.asarray(codes), jnp.asarray(validb), jnp.asarray(mlen),
+        jnp.asarray(allow), k=k, w=w, interpret=True,
+    )
+    pc, pv = jeng.host_pack_bits(codes, validb)
+    lo, hi, wpf = tk.values_select(
+        torch.from_numpy(pc), torch.from_numpy(pv), torch.from_numpy(mlen),
+        torch.from_numpy(allow), k=k, w=w,
+    )
+    want_wpf = np.asarray(want_wpf)
+    np.testing.assert_array_equal(wpf.numpy(), want_wpf)
+    flagged = (want_wpf >> 16) != 0
+    assert flagged.sum() > 0
+    v = [np.asarray(x).astype(np.uint64) for x in want_v]
+    np.testing.assert_array_equal(
+        _u64(lo)[flagged], (v[0] | (v[1] << np.uint64(32)))[flagged])
+    want_hi = (v[2] | (v[3] << np.uint64(32))) if k > 32 else 0 * v[0]
+    np.testing.assert_array_equal(_u64(hi)[flagged], want_hi[flagged])
+
+
+@pytest.mark.parametrize("k,w", [(41, 15), (57, 9)])
+def test_k3_slots_match_oracle(k, w):
+    """K3's plain version, compacted into the slot grid and hashed, gives
+    the oracle's index-side minimizers of every row (k = 57 included,
+    where the JAX package has no kernel)."""
+    rng = np.random.default_rng(k)
+    L = 512
+    l = k + w - 1
+    seqs = [rng.choice(_B, size=int(n)).tobytes()
+            for n in rng.integers(k, L + 1, 12)]
+    seqs[1] = seqs[1][:100] + b"NRYK" * 5 + seqs[1][120:].lower()
+    seqs[2] = seqs[2][:l - 1]  # short row: one window
+    rows = [tpack._Row(i, 0, 0, s) for i, s in enumerate(seqs)]
+    arrs = tpack.pack_rows_packed(rows, len(rows), L, k, l,
+                                  code_table=tpack.INDEX_CODE)
+    pos, planes, tot = teng.select_slots(
+        *(torch.from_numpy(a) for a in arrs[:4]), k=k, w=w, Br=L)
+    h = _u64(teng.hash_planes(planes))
+    for i, s in enumerate(seqs):
+        want = jmnp.compute_minimizer_hashes(s, k, w)
+        np.testing.assert_array_equal(h[i, :int(tot[i])], want)
+
+
+def _entropy_slots(rng, k, n=400, L=256):
+    """Rows holding k-mers of skewed compositions at known positions."""
+    seqs, pos = [], []
+    for _ in range(n):
+        p = rng.dirichlet(np.full(4, 0.4))
+        kmer = rng.choice(_B, size=k, p=p).tobytes()
+        off = int(rng.integers(0, L - k + 1))
+        seqs.append(rng.choice(_B, size=off).tobytes() + kmer
+                    + rng.choice(_B, size=L - off - k).tobytes())
+        pos.append(off)
+    return seqs, np.array(pos, np.int32)
+
+
+@pytest.mark.parametrize("k", [31, 41])
+def test_entropy_step_matches_jax_stages(k):
+    rng = np.random.default_rng(k + 5)
+    L = 256
+    seqs, pos = _entropy_slots(rng, k, L=L)
+    rows = [tpack._Row(i, 0, 0, s) for i, s in enumerate(seqs)]
+    pc = tpack.pack_rows_packed(rows, len(rows), L, k, k + 14,
+                                code_table=tpack.INDEX_CODE)[0]
+    arena = np.frombuffer(b"".join(seqs), np.uint8).reshape(len(seqs), L)
+    codes = jmnp.PACK_CODE[arena]
+    R = len(seqs)
+    for thr in (0.5, 0.8, 0.9):
+        got = teng.entropy_keep(
+            torch.from_numpy(pc), torch.from_numpy(pos)[:, None],
+            torch.from_numpy(teng.entropy_keep_table(k, thr)), k)[:, 0]
+        want = jeng._stage_entropy(
+            jnp.asarray(codes), jnp.asarray(np.ones((R, L), bool)),
+            jnp.arange(R, dtype=jnp.int32), jnp.asarray(pos),
+            jnp.ones(R, bool), jnp.float32(thr), k=k)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert 0 < int(got.sum()) < R
+        if k <= 32:
+            lo, _ = jmnp.canonical_values(codes.reshape(-1),
+                                          np.arange(R) * L + pos, k)
+            v0, v1 = _u32_pair(lo)
+            limbs = jeng._entropy_from_limbs(v0, v1, jnp.float32(thr), k=k)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(limbs))
+
+
+@pytest.mark.parametrize("k", [13, 41, 57])
+def test_entropy_keep_is_the_oracle_at_every_composition(k):
+    """The float sum of the four entropy terms depends on their order, so
+    a composition and its reverse complement can differ in the last bit.
+    With the threshold set to such values, entropy_keep still decides
+    every k-mer, on either strand, as the oracle does on its bytes."""
+    rng = np.random.default_rng(k)
+    n = k + 1
+    comps = [(a, c, g, k - a - c - g) for a in range(n)
+             for c in range(n - a) for g in range(n - a - c)]
+    L = 128
+    seqs, pos = [], []
+    for a, c, g, t in comps[::max(1, len(comps) // 500)]:
+        kmer = bytearray(b"A" * a + b"C" * c + b"G" * g + b"T" * t)
+        rng.shuffle(kmer)
+        off = int(rng.integers(0, L - k + 1))
+        seqs.append(rng.choice(_B, size=off).tobytes() + bytes(kmer)
+                    + rng.choice(_B, size=L - off - k).tobytes())
+        pos.append(off)
+    ent = jmnp.scaled_entropy(np.frombuffer(b"".join(seqs), np.uint8),
+                              np.arange(len(seqs)) * L + np.array(pos), k)
+    rows = [tpack._Row(i, 0, 0, s) for i, s in enumerate(seqs)]
+    pc = torch.from_numpy(tpack.pack_rows_packed(
+        rows, len(rows), L, k, k + 14, code_table=tpack.INDEX_CODE)[0])
+    cuts = np.unique(ent)[::7]
+    assert cuts.size > 5
+    for cut in cuts:
+        got = teng.entropy_keep(pc, torch.tensor(pos)[:, None],
+                                torch.from_numpy(
+                                    teng.entropy_keep_table(k, float(cut))),
+                                k)[:, 0]
+        np.testing.assert_array_equal(got.numpy(), ent >= cut)
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +532,13 @@ def test_wrappers_reject_bad_input_and_other_devices():
     with pytest.raises(ValueError):
         tk.select_compact(pc.to("meta"), pv.to("meta"), mlen.to("meta"),
                           allow.to("meta"), k=31, w=15, Br=128)
+    with pytest.raises(ValueError):
+        tk.values_select(pc, pv, mlen, allow, k=58, w=15)
+    with pytest.raises(ValueError):
+        tk.values_select(pc[:, :40], pv[:, :20], mlen, allow, k=41, w=15)
+    with pytest.raises(ValueError):
+        tk.values_select(pc.to("meta"), pv.to("meta"), mlen.to("meta"),
+                         allow.to("meta"), k=41, w=15)
     t = trp.build_radix_table(torch.arange(100, dtype=torch.int64))
     q = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):

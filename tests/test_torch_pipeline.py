@@ -1,7 +1,8 @@
 """deacon_tpu_torch's DevicePipeline on the CPU against the JAX package's
 DevicePipeline on the CPU (XLA emulation of its kernels): per-read hits and
 totals equal for single reads, paired union, chunked long reads and an
-index whose table spills."""
+index whose table spills, at k = 31 and on the wide-k (u128) path at
+k = 41; and the port's IndexBuildPipeline against the JAX package's."""
 
 import numpy as np
 import pytest
@@ -183,3 +184,103 @@ def test_default_device_is_cuda_and_never_falls_back(genome_and_index, monkeypat
         DevicePipeline(idx, 31, 15)
     with pytest.raises(ValueError):
         DevicePipeline(idx, 31, 15, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# wide k (33-56): K3, the u128 hash, the same slot grid downstream
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def genome_and_index_k41():
+    rng = np.random.default_rng(41)
+    genome = _rs(rng, 100_000)
+    return genome, np.unique(mnp.compute_minimizer_hashes(genome, 41, 15))
+
+
+def _k41_pipes(idx, tiles):
+    return (DevicePipeline(idx, 41, 15, tiles=tiles, device="cpu"),
+            JaxPipeline(idx, 41, 15, tiles=tiles))
+
+
+def test_k41_single_and_paired_match_jax(genome_and_index_k41):
+    genome, idx = genome_and_index_k41
+    rng = np.random.default_rng(6)
+    seqs = _reads(rng, genome, 50, 20, 700)
+    seqs += [genome[300:341], genome[800:850].lower(), b"ACGTN" * 40]
+    port, ref = _k41_pipes(idx, ((128, 32), (256, 16)))
+    for prefix in (0, 90):
+        got, want = port.counts_single(seqs, prefix), ref.counts_single(
+            seqs, prefix)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    assert got[0].sum() > 0
+    pairs = list(zip(seqs[::2], seqs[1::2]))
+    got, want = port.counts_paired(pairs, 0), ref.counts_paired(pairs, 0)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_k41_chunked_long_reads_and_reruns_match_jax(genome_and_index_k41):
+    """Long reads chunked at the largest tile, and low-complexity rows over
+    their slot budget, which the port reruns on the device."""
+    genome, idx = genome_and_index_k41
+    rng = np.random.default_rng(7)
+    reads = [genome[s:s + 2600] for s in rng.integers(0, 90_000, 4)]
+    reads += [genome[5000:5400] + b"N" * 2000, _rs(rng, 2600),
+              genome[2000:2300] + b"A" * 600, b"AC" * 450 + genome[4000:4080],
+              b"T" * 1000]
+    port, ref = _k41_pipes(idx, ((512, 16), (1024, 8)))
+    got, want = port.counts_single(reads, 0), ref.counts_single(reads, 0)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert port.rerun_batches >= 1 and port.rerun_units >= 2
+
+
+def test_filter_k_above_56_raises(genome_and_index_k41):
+    _, idx = genome_and_index_k41
+    with pytest.raises(ValueError, match="k<=56"):
+        DevicePipeline(idx, 57, 15, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# index build
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,e", [(31, 0.0), (31, 0.5), (41, 0.0), (41, 0.9)])
+def test_index_build_pipeline_matches_jax(k, e):
+    """Every sequence's hashes equal the JAX IndexBuildPipeline's and the
+    oracle's. A poly-A row goes over its slot budget: at k <= 32 the JAX
+    pipeline raises BudgetOverflow (its caller then extracts on the host;
+    its wide-k budget is batch-global), the port reruns the row on the
+    device."""
+    from deacon_tpu.ops.engine import BudgetOverflow
+    from deacon_tpu.ops.engine import IndexBuildPipeline as JaxIndexPipeline
+    from deacon_tpu_torch.ops.engine import DistinctHashes, IndexBuildPipeline
+
+    rng = np.random.default_rng(k)
+    seqs = [_rs(rng, 500), _rs(rng, 60), _rs(rng, 20),
+            _rs(rng, 100) + b"N" + _rs(rng, 100), _rs(rng, 5000),
+            b"RYKMWSN" * 30 + _rs(rng, 100), b"ACAC" * 25 + _rs(rng, 200),
+            _rs(rng, 300).lower(), b"A" * 700 + _rs(rng, 300)]
+    port = IndexBuildPipeline(k, 15, e, tiles=((256, 4), (1024, 4)),
+                              device="cpu")
+    ref = JaxIndexPipeline(k, 15, entropy_threshold=e, row_len=1024,
+                           rows_per_batch=8)
+    if k <= 32:
+        with pytest.raises(BudgetOverflow):
+            ref.extract_batch(seqs)
+        want = ref.extract_batch(seqs[:-1])
+    else:
+        want = ref.extract_batch(seqs)
+    h, seq = port.extract_batch(seqs)
+    assert port.rerun_rows == 1
+    seen: set = set()
+    running = DistinctHashes(port.device).add(h, seq, len(seqs))
+    for i, s in enumerate(seqs):
+        got = np.unique(h[seq == i].numpy().view(np.uint64))
+        oracle = mnp.compute_minimizer_hashes(s, k, 15, e)
+        np.testing.assert_array_equal(got, np.unique(oracle))
+        if i < len(want):
+            np.testing.assert_array_equal(got, np.unique(want[i]))
+        seen |= set(oracle.tolist())
+        assert running[i] == len(seen)
