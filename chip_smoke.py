@@ -39,7 +39,29 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
 8. index build at scale: a seeded 104 Mbp multi-record FASTA through
    ``index build`` on the card at k=31 (K1) and k=41 (K3), with Mbp/s;
    both indexes byte-identical to the oracle's over the records the
-   oracle (six worker processes) finishes within its time limit.
+   oracle (six worker processes) finishes within its time limit;
+9. K4 (select_csum) against its plain version, every output exact, at
+   the tiles (384, 4096), (1152, 2048), (12288, 512) at k=31, w=15 and
+   (1152, 2048) at (15, 5), dirty, short and unused rows;
+10. K5 (values_argmin) against its plain version, every output exact, at
+   the three default tiles at k=31 and k=41, and (2048, 2048) at (56, 9);
+11. the CLI under the engine's switches, card against CPU, byte for
+   byte: ``index build`` under DEACON_PALLAS=1 at k=31 and 41 against the
+   oracle's index (K5 only), ``filter`` single and paired under
+   DEACON_TPU_TILES=384:4096,1152:2048,12288:512 (K4), DEACON_ENGINE=3
+   (K4), DEACON_ENGINE=2 (K3) and DEACON_PALLAS=1 at k=31 and 41 (K5),
+   each with its launch counters checked;
+12. ``filter`` with .zst input and output on the card through libzstd;
+   whether libzstd.so.1 loaded is printed;
+4a, 4b, 4c, 7b: phase 4's reads once more against its table under
+   DEACON_TPU_TILES=384:4096,1152:2048,12288:512 (K4), DEACON_PALLAS=1
+   (K5) and no switch (K1, a control run in the same place as the other
+   two), and phase 7's under DEACON_PALLAS=1 (K5): every unit equal to
+   the phase's reference counts, with Mbp/s, busy share, reruns and the
+   window's launches of each kernel.
+
+Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 4, 4a, 4b, 4c, 5, 6,
+7, 7b, 8. Each switch is set in os.environ only around its phase.
 
 Every temporary file lives in a tempfile directory outside the checkout
 and is deleted; nothing is left running. Exits non-zero, printing no
@@ -51,6 +73,7 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -66,6 +89,8 @@ import deacon_tpu_torch as dtt
 from deacon_tpu_torch.cli import main as cli_main
 from deacon_tpu_torch.filter.engine import DeviceDecider
 from deacon_tpu_torch.index.store import load_header_and_count
+from deacon_tpu_torch.io import zstd
+from deacon_tpu_torch.io.fastx import open_maybe_compressed
 from deacon_tpu_torch.ops import _build
 from deacon_tpu_torch.ops import kernels as K
 from deacon_tpu_torch.ops.engine import DevicePipeline
@@ -87,6 +112,10 @@ from deacon_tpu_torch.utils.xxh3 import xxh3_64_u64, xxh3_64_u128
 SEED = 20261017
 K_, W_ = 31, 15
 K_WIDE = 41
+SWITCHES = ("DEACON_TPU_TILES", "DEACON_ENGINE", "DEACON_PALLAS")
+#: non-power-of-two row lengths: every tile takes the K4 route (arch 3)
+K4_TILES = ((384, 4096), (1152, 2048), (12288, 512))
+K4_TILES_ENV = ",".join(f"{L}:{R}" for L, R in K4_TILES)
 PANHUMAN_KEYS = 410_000_000  # README: ~4.1e8 minimizers at k=31, w=15
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 INT32_OPS_PER_S = 33.5e12    # half the 67 TFLOP/s fp32 rate: 64 INT32 lanes/SM
@@ -115,6 +144,45 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+@contextlib.contextmanager
+def switches(**env):
+    """The engine's switches set to env (the others unset) for a phase,
+    restored after it."""
+    old = {name: os.environ.pop(name, None) for name in SWITCHES}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
+
+
+#: the selection kernels by name (each tile class runs one of them)
+SELECT = {"K1": K.select_compact, "K3": K.values_select,
+          "K4": K.select_csum, "K5": K.values_argmin}
+
+
+def reset_launches() -> None:
+    for f in (*SELECT.values(), K.probe_hits):
+        f.launches = 0
+
+
+def launch_counts() -> dict:
+    out = {name: f.launches for name, f in SELECT.items()}
+    out["K2"] = K.probe_hits.launches
+    return dict(sorted(out.items()))
+
+
+def check_route(launches: dict, kernel: str, what: str) -> None:
+    """kernel and K2 launched, no other selection kernel."""
+    others = [n for n in SELECT if n != kernel and launches[n]]
+    if launches[kernel] <= 0 or launches["K2"] <= 0 or others:
+        raise AssertionError(f"{what}: expected {kernel} and K2 only, "
+                             f"launches {launches}")
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -254,6 +322,13 @@ def phase2(rng) -> dict:
     return {"k1": k1, "k2": k2}
 
 
+def parity_tile(rng, k: int, w: int, L: int, R: int):
+    """A tile of tile_rows with 1 row in 16 unused (mlen -1), on the card."""
+    n = R - max(1, R // 16)
+    arrs = pack_rows_packed(tile_rows(rng, L, n, k, w), R, L, k, k + w - 1)
+    return [torch.from_numpy(a).to("cuda") for a in arrs[:4]]
+
+
 def phase5_k3(rng) -> dict:
     """K3 against its plain version: the three default tiles at k=41,
     w=15 (summed for the kernel table), then one tile each at (56, 9)
@@ -263,16 +338,12 @@ def phase5_k3(rng) -> dict:
     written once) or ~80 int32 operations per base (128-bit values,
     key, window minimum, validity, flag), whichever is larger."""
     t0 = time.perf_counter()
-    dev = torch.device("cuda")
     k3 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
           "tiles": []}
     cases = [(K_WIDE, W_, L, R) for L, R in DevicePipeline.DEFAULT_TILES]
     cases += [(56, 9, 2048, 2048), (31, 15, 2048, 2048)]
     for k, w, L, R in cases:
-        n = R - max(1, R // 16)
-        arrs = pack_rows_packed(tile_rows(rng, L, n, k, w), R, L, k,
-                                k + w - 1)
-        pc, pv, mlen, allow = (torch.from_numpy(a).to(dev) for a in arrs[:4])
+        pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
 
         def kern():
             return K.values_select(pc, pv, mlen, allow, k=k, w=w)
@@ -303,6 +374,103 @@ def phase5_k3(rng) -> dict:
                             "bound_by": by, "flagged": flagged})
     log("5 K3 parity", t0, k3=json.dumps(k3["tiles"]))
     return k3
+
+
+def phase9_k4(rng) -> dict:
+    """K4 (select_csum) against its plain version, plane and totals equal
+    everywhere: the three K4_TILES at k=31, w=15 (summed for the kernel
+    table) and (1152, 2048) at (15, 5). Bound: 0.375 bytes per base read
+    (packed codes and validity), 4 written (the plane) and 4 per row, or
+    ~40 int32 operations per base (K1's count without its compaction),
+    whichever is larger."""
+    t0 = time.perf_counter()
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
+          "tiles": []}
+    cases = [(K_, W_, L, R) for L, R in K4_TILES] + [(15, 5, 1152, 2048)]
+    for k, w, L, R in cases:
+        pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
+
+        def kern():
+            return K.select_csum(pc, pv, mlen, allow, k=k, w=w)
+
+        def plain():
+            return K.select_csum_plain(pc, pv, mlen, allow, k=k, w=w)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        bad = sum(int((g != p_).sum()) for g, p_ in zip(got, want))
+        if bad:
+            raise AssertionError(
+                f"K4 differs from its plain version at {bad} entries, "
+                f"(k, w, L, R) = {(k, w, L, R)}")
+        ms = time_ms(kern, 20)
+        pms = time_ms(plain, 3, warm=1)
+        nbytes = R * (L // 4 + L // 8 + 4 + 1) + R * L * 4 + R * 4
+        b, by = bound_ms(nbytes, R * L * 40.0)
+        if k == K_:
+            k4["ms"] += ms
+            k4["plain_ms"] += pms
+            k4["bound_ms"] += b
+            k4["bound_by"] = by
+        k4["tiles"].append({"k": k, "w": w, "L": L, "R": R,
+                            "ms": round(ms, 4), "plain_ms": round(pms, 3),
+                            "bytes": nbytes, "bound_ms": round(b, 5),
+                            "bound_by": by, "flagged": int(got[1].sum())})
+    log("9 K4 parity", t0, k4=json.dumps(k4["tiles"]))
+    return k4
+
+
+def phase10_k5(rng) -> dict:
+    """K5 (values_argmin) against its plain version, value planes and wp
+    equal everywhere: the three default tiles at k=31 (summed for the
+    kernel table) and k=41, w=15, and (2048, 2048) at (56, 9). Bound: 0.25
+    bytes per base read (packed codes; K5 takes no validity) and 12
+    written at k <= 32 (the value and wp), 20 above, or ~40 (k <= 32) or
+    ~80 (128-bit values) int32 operations per base, whichever is
+    larger."""
+    t0 = time.perf_counter()
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
+          "k41_ms": 0.0, "tiles": []}
+    cases = [(k, W_, L, R) for k in (K_, K_WIDE)
+             for L, R in DevicePipeline.DEFAULT_TILES]
+    cases.append((56, 9, 2048, 2048))
+    for k, w, L, R in cases:
+        pc, _, mlen, _ = parity_tile(rng, k, w, L, R)
+
+        def kern():
+            return K.values_argmin(pc, mlen, k=k, w=w)
+
+        def plain():
+            return K.values_argmin_plain(pc, mlen, k=k, w=w)
+
+        (planes, wp), (pplanes, pwp) = kern(), plain()
+        torch.cuda.synchronize()
+        bad = int((wp != pwp).sum()) + sum(
+            int((g != p_).sum()) for g, p_ in zip(planes, pplanes))
+        if bad or len(planes) != len(pplanes):
+            raise AssertionError(
+                f"K5 differs from its plain version at {bad} entries, "
+                f"(k, w, L, R) = {(k, w, L, R)}")
+        del planes, wp, pplanes, pwp
+        ms = time_ms(kern, 20)
+        pms = time_ms(plain, 3, warm=1)
+        wide = k > 32
+        nbytes = R * (L // 4 + 4) + R * L * (20 if wide else 12)
+        b, by = bound_ms(nbytes, R * L * (80.0 if wide else 40.0))
+        if k == K_:
+            k5["ms"] += ms
+            k5["plain_ms"] += pms
+            k5["bound_ms"] += b
+            k5["bound_by"] = by
+        elif k == K_WIDE:
+            k5["k41_ms"] += ms
+        k5["tiles"].append({"k": k, "w": w, "L": L, "R": R,
+                            "ms": round(ms, 4), "plain_ms": round(pms, 3),
+                            "bytes": nbytes, "bound_ms": round(b, 5),
+                            "bound_by": by})
+    log("10 K5 parity", t0, k5=json.dumps(k5["tiles"]),
+        k41_sum_ms=round(k5["k41_ms"], 4))
+    return k5
 
 
 # ---------------------------------------------------------------------------
@@ -387,8 +555,7 @@ def phase3(rng) -> dict:
                                      for i, (a, _) in enumerate(pairs)])
         write_fastq(paths["r2.fq"], [(b"p%d/2" % i, b)
                                      for i, (_, b) in enumerate(pairs)])
-        K.select_compact.launches = 0
-        K.probe_hits.launches = 0
+        reset_launches()
         runs = 0
         for deplete in ([], ["--deplete"]):
             for inputs, two in (([paths["s.fq"]], False),
@@ -422,10 +589,8 @@ def phase3(rng) -> dict:
                         f"{deplete})")
                 if not got["cuda"][0]:
                     raise AssertionError("empty CLI output")
-        launches = {"K1": K.select_compact.launches,
-                    "K2": K.probe_hits.launches}
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"kernels not launched by the CLI: {launches}")
+        launches = launch_counts()
+        check_route(launches, "K1", "filter at k=31")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("3 cli end to end", t0, runs=runs, kept_bytes=len(got["cuda"][0]),
@@ -467,7 +632,7 @@ def phase6_wide_cli(rng) -> dict:
         fa = os.path.join(tmp, "ref.fa")
         write_fasta(fa, recs)
         seqs = [s for _, s in recs]
-        K.select_compact.launches = K.values_select.launches = 0
+        reset_launches()
         sizes = []
         for e in ([], ["-e", "0.5"]):
             built = {}
@@ -484,9 +649,9 @@ def phase6_wide_cli(rng) -> dict:
             sizes.append(len(want))
         if not sizes[1] < sizes[0]:
             raise AssertionError("-e 0.5 filtered no k-mer of the FASTA")
-        build_launches = {"K1": K.select_compact.launches,
-                          "K3": K.values_select.launches}
-        if build_launches["K3"] <= 0 or build_launches["K1"] != 0:
+        build_launches = launch_counts()
+        if build_launches["K3"] <= 0 or any(
+                build_launches[n] for n in ("K1", "K4", "K5")):
             raise AssertionError(f"index build -k {k}: {build_launches}")
         idx = os.path.join(tmp, "cuda0.idx")  # built without -e
         genome = b"".join(seqs)
@@ -514,8 +679,7 @@ def phase6_wide_cli(rng) -> dict:
                                      for i, (a, _) in enumerate(pairs)])
         write_fastq(paths["r2.fq"], [(b"p%d/2" % i, b)
                                      for i, (_, b) in enumerate(pairs)])
-        K.select_compact.launches = K.probe_hits.launches = 0
-        K.values_select.launches = 0
+        reset_launches()
         runs, kept = 0, 0
         for deplete in ([], ["--deplete"]):
             for inputs, two in (([paths["s.fq"]], False),
@@ -541,11 +705,8 @@ def phase6_wide_cli(rng) -> dict:
                 kept += len(got["cuda"][0])
         if kept == 0:
             raise AssertionError("empty CLI output at k=41")
-        launches = {"K1": K.select_compact.launches,
-                    "K2": K.probe_hits.launches,
-                    "K3": K.values_select.launches}
-        if launches["K3"] <= 0 or launches["K2"] <= 0 or launches["K1"]:
-            raise AssertionError(f"k={k} filter launches: {launches}")
+        launches = launch_counts()
+        check_route(launches, "K3", f"k={k} filter")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("6 cli at k=41", t0, index_bp=sum(map(len, seqs)),
@@ -554,6 +715,131 @@ def phase6_wide_cli(rng) -> dict:
         build_launches=json.dumps(build_launches),
         filter_launches=json.dumps(launches))
     return launches
+
+
+def filter_both(idx: str, inputs: list[str], out_dir: str, tag: str,
+                extra=()) -> bytes:
+    """``filter`` on the card and on the CPU; their outputs (and -O
+    outputs) must be byte-identical. Returns the card's output."""
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(out_dir, f"{tag}_{device}.fq")
+        args = ["filter", idx, *inputs, "-o", out, "-a", "2", "-q",
+                "--device", device, *extra]
+        if len(inputs) == 2:
+            args += ["-O", out + ".2"]
+        rc = cli_main(args)
+        if rc != 0:
+            raise AssertionError(f"CLI exit {rc}: {args}")
+        got[device] = (read_bytes(out),
+                       read_bytes(out + ".2") if len(inputs) == 2 else b"")
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError(f"{tag}: cuda and cpu CLI outputs differ")
+    if not got["cuda"][0]:
+        raise AssertionError(f"{tag}: empty CLI output")
+    return got["cuda"][0]
+
+
+def phase11_switch_cli(rng) -> dict:
+    """The CLI under the engine's switches, card against CPU: ``index
+    build`` under DEACON_PALLAS=1 at k=31 and 41 byte-identical to the
+    oracle's index (K5 only); then ``filter``, single and paired, under
+    DEACON_TPU_TILES=K4_TILES (K4), DEACON_ENGINE=3 (K4), DEACON_ENGINE=2
+    (K3) and DEACON_PALLAS=1 at k=31 and 41 (K5), each with the launch
+    counters checked. Then phase 12: one ``filter`` with .zst input and
+    output on the card, its decompressed output equal to the plain run's."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_switch_")
+    out: dict = {"index_build": {}, "filter": {}}
+    try:
+        genome = rand_seq(rng, 600_000)
+        fa = os.path.join(tmp, "genome.fa")
+        write_fasta(fa, [(b"genome", genome)])
+        idx = {}
+        for k in (K_, K_WIDE):
+            want = oracle_index(os.path.join(tmp, "oracle.idx"), [genome], k,
+                                W_)
+            with switches(DEACON_PALLAS="1"):
+                reset_launches()
+                for device in ("cuda", "cpu"):
+                    path = os.path.join(tmp, f"p1_{device}_{k}.idx")
+                    cli_index_build(fa, path, k, W_, device)
+                    if read_bytes(path) != want:
+                        raise AssertionError(
+                            f"index build -k {k} under DEACON_PALLAS=1 on "
+                            f"{device} differs from the oracle's index")
+                launches = launch_counts()
+            others = [n for n in SELECT if n != "K5" and launches[n]]
+            if launches["K5"] <= 0 or others:
+                raise AssertionError(f"index build -k {k} under "
+                                     f"DEACON_PALLAS=1: {launches}")
+            out["index_build"][f"k{k}"] = launches
+            idx[k] = os.path.join(tmp, f"p1_cuda_{k}.idx")
+        single = [(b"s%d" % i, sample_read(rng, genome, 150))
+                  for i in range(1500)]
+        single += [(b"long%d" % i,
+                    sample_read(rng, genome, int(rng.integers(2000, 20000))))
+                   for i in range(20)]
+        single += [(b"lowc%d" % i, sample_read(rng, genome, 600)
+                    + low_complexity(rng, int(rng.integers(600, 1400))))
+                   for i in range(8)]
+        pairs = [(sample_read(rng, genome, 150),
+                  sample_read(rng, genome, 150)) for _ in range(500)]
+        paths = {n: os.path.join(tmp, n) for n in ("s.fq", "r1.fq", "r2.fq")}
+        write_fastq(paths["s.fq"], single)
+        write_fastq(paths["r1.fq"], [(b"p%d/1" % i, a)
+                                     for i, (a, _) in enumerate(pairs)])
+        write_fastq(paths["r2.fq"], [(b"p%d/2" % i, b)
+                                     for i, (_, b) in enumerate(pairs)])
+        cases = [("tiles", {"DEACON_TPU_TILES": K4_TILES_ENV}, K_, "K4"),
+                 ("engine3", {"DEACON_ENGINE": "3"}, K_, "K4"),
+                 ("engine2", {"DEACON_ENGINE": "2"}, K_, "K3"),
+                 ("pallas1", {"DEACON_PALLAS": "1"}, K_, "K5"),
+                 ("pallas1_k41", {"DEACON_PALLAS": "1"}, K_WIDE, "K5")]
+        for name, env, k, kernel in cases:
+            with switches(**env):
+                reset_launches()
+                filter_both(idx[k], [paths["s.fq"]], tmp, name)
+                filter_both(idx[k], [paths["r1.fq"], paths["r2.fq"]], tmp,
+                            name + "_paired", ["--deplete"])
+                launches = launch_counts()
+            check_route(launches, kernel, f"filter under {env} at k={k}")
+            out["filter"][name] = launches
+        log("11 cli under the switches", t0, **{
+            n: json.dumps(v) for n, v in out.items()})
+        # phase 12: .zst in and out on the card, through libzstd
+        t0 = time.perf_counter()
+        try:
+            zstd.library("chip_smoke")
+            loaded = True
+        except zstd.ZstdError as e:
+            loaded = False
+            print(f"[phase 12] libzstd: {e}", flush=True)
+        plain = filter_both(idx[K_], [paths["s.fq"]], tmp, "plain")
+        zin = paths["s.fq"] + ".zst"
+        with open(zin, "wb") as f:
+            w = zstd.Writer(f, 3, zin)
+            w.write(read_bytes(paths["s.fq"]))
+            w.close()
+        zout = os.path.join(tmp, "o.fq.zst")
+        rc = cli_main(["filter", idx[K_], zin, "-o", zout, "-a", "2", "-q",
+                       "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f".zst filter: CLI exit {rc} (libzstd "
+                                 f"loaded: {loaded})")
+        raw = read_bytes(zout)
+        with open_maybe_compressed(zout) as f:
+            unpacked = f.read()
+        if not raw.startswith(b"\x28\xb5\x2f\xfd") or unpacked != plain:
+            raise AssertionError(".zst filter output differs from the plain "
+                                 "run's")
+        out["zst"] = {"libzstd_loaded": loaded, "in_bytes": len(
+            read_bytes(zin)), "out_bytes": len(raw),
+            "out_decompressed_bytes": len(unpacked)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("12 zst", t0, zst=json.dumps(out["zst"]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -748,9 +1034,57 @@ def where_time_goes(decider, single, pairs, ont, run_s: float) -> dict:
             "top_device": top_dev, "top_host_self": top_host}
 
 
-def panhuman(rng, k: int, phase: str) -> dict:
-    """Phase 4 (k=31) or 5 (k=41): a panhuman-scale table and ~20 Mbp of
-    reads through DeviceDecider, every unit against the reference."""
+def switch_window(table, k: int, reads, ref, n_bp: int, label: str,
+                  env: dict, kernel: str) -> dict:
+    """The panhuman window's reads once more under a switch, through a
+    DeviceDecider sharing the table: every unit equal to the reference
+    counts (which no route changes), Mbp/s, reruns, the window's launches
+    of each kernel (kernel must be its only selection kernel) and where
+    the time goes (busy share, device and host time by name)."""
+    t0 = time.perf_counter()
+    single, pairs, ont = reads
+    with switches(**env):
+        decider = DeviceDecider(table, k, W_, "cuda")
+        routes = sorted(set(decider.pipe.routes.values()))
+        run_decider(decider, single[:2000], pairs[:1000], ont[:20])
+        torch.cuda.synchronize()
+        pipe = decider.pipe
+        pipe.rerun_batches = pipe.rerun_units = 0
+        reset_launches()
+        t_run = time.perf_counter()
+        decisions = run_decider(decider, single, pairs, ont)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        launches = launch_counts()
+        reruns = {"batches": pipe.rerun_batches, "units": pipe.rerun_units}
+        check_route(launches, kernel, f"window {label}")
+        hits_ref, tot_ref = ref
+        got_h = np.array([d[1] for d in decisions])
+        got_t = np.array([d[2] for d in decisions])
+        bad = np.nonzero((got_h != hits_ref) | (got_t != tot_ref))[0]
+        if bad.size:
+            i = int(bad[0])
+            raise AssertionError(
+                f"window {label}: {bad.size} units differ from the "
+                f"reference; first {i}: got {(got_h[i], got_t[i])}, want "
+                f"{(hits_ref[i], tot_ref[i])}")
+        split = where_time_goes(decider, single, pairs, ont, run_s)
+    numbers = {"switch": env, "routes": routes, "mbp": n_bp / 1e6,
+               "run_s": round(run_s, 3),
+               "mbp_per_s": round(n_bp / 1e6 / run_s, 3),
+               "on_card_rerun_batches": reruns["batches"],
+               "on_card_rerun_units": reruns["units"],
+               "timed_window_launches": launches, **split}
+    log(f"{label} panhuman scale k={k} under a switch", t0, **{
+        n: json.dumps(v) for n, v in numbers.items()})
+    return numbers
+
+
+def panhuman(rng, k: int, phase: str, windows=()) -> dict:
+    """Phase 4 (k=31) or 7 (k=41): a panhuman-scale table and ~20 Mbp of
+    reads through DeviceDecider, every unit against the reference; then
+    the same reads under each of ``windows`` ((label, switches, kernel)),
+    before the table is freed."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
@@ -778,18 +1112,14 @@ def panhuman(rng, k: int, phase: str) -> dict:
     torch.cuda.synchronize()
     pipe = decider.pipe
     pipe.rerun_batches = pipe.rerun_units = 0
-    K.select_compact.launches = K.probe_hits.launches = 0
-    K.values_select.launches = 0
+    reset_launches()
     t_run = time.perf_counter()
     decisions = run_decider(decider, single, pairs, ont)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    launches = {"K1": K.select_compact.launches, "K2": K.probe_hits.launches,
-                "K3": K.values_select.launches}
+    launches = launch_counts()
     wide = k > 32
-    if launches["K2"] <= 0 or launches["K3" if wide else "K1"] <= 0 or (
-            launches["K1" if wide else "K3"] != 0):
-        raise AssertionError(f"k={k}: timed-window launches {launches}")
+    check_route(launches, "K3" if wide else "K1", f"k={k}: timed window")
     reruns = {"batches": pipe.rerun_batches, "units": pipe.rerun_units}
     if reruns["units"] == 0:
         raise AssertionError("no row went over its minimizer budget: the "
@@ -830,7 +1160,12 @@ def panhuman(rng, k: int, phase: str) -> dict:
             torch.cuda.max_memory_allocated() / 1e9, 3),
     }
     log(f"{phase} panhuman scale k={k}", t0, **numbers, k2=json.dumps(k2))
-    return {"numbers": numbers, "k2": k2, "launches": launches}
+    extra = {label: switch_window(table, k, (single, pairs, ont),
+                                  (hits_ref, tot_ref), n_bp, label, env,
+                                  kernel)
+             for label, env, kernel in windows}
+    return {"numbers": numbers, "k2": k2, "launches": launches,
+            "windows": extra}
 
 
 def measure_k2(table, key, srid, first, n_seg: int) -> dict:
@@ -926,7 +1261,7 @@ def phase8_index_scale(rng) -> dict:
         builds = {}
         for k in (K_, K_WIDE):
             out = os.path.join(tmp, f"card{k}.idx")
-            K.select_compact.launches = K.values_select.launches = 0
+            reset_launches()
             t = time.perf_counter()
             cli_index_build(fa, out, k, W_, "cuda")
             torch.cuda.synchronize()
@@ -1005,11 +1340,18 @@ def main() -> int:
     _build.library()
     log("1 build", t0, nvcc_s=secs if secs is not None else "cached")
     p2 = phase2(rng)
+    k4 = phase9_k4(rng)
+    k5 = phase10_k5(rng)
     launches3 = phase3(rng)
-    p4 = panhuman(rng, K_, "4")
+    p11 = phase11_switch_cli(rng)
+    p4 = panhuman(rng, K_, "4", windows=(
+        ("4a", {"DEACON_TPU_TILES": K4_TILES_ENV}, "K4"),
+        ("4b", {"DEACON_PALLAS": "1"}, "K5"),
+        ("4c", {}, "K1")))
     k3 = phase5_k3(rng)
     launches6 = phase6_wide_cli(rng)
-    p7 = panhuman(rng, K_WIDE, "7")
+    p7 = panhuman(rng, K_WIDE, "7", windows=(
+        ("7b", {"DEACON_PALLAS": "1"}, "K5"),))
     phase8_index_scale(rng)
     k1, k2 = p2["k1"], p4["k2"]
     kernels = [
@@ -1038,16 +1380,36 @@ def main() -> int:
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
          "shapes": "sum over the three default tiles at k=41, w=15"},
+        {"name": "K4 select_csum", "route": "cuda",
+         "source": "deacon_tpu_torch/csrc/select_csum.cu",
+         "replaces": "deacon_tpu/ops/pallas_kernels.py:494",
+         "launches": p4["windows"]["4a"]["timed_window_launches"]["K4"],
+         "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": k4["bound_by"], "library_ms": None,
+         "shapes": f"sum over the tiles {K4_TILES_ENV} at k=31, w=15"},
+        {"name": "K5 values_argmin", "route": "cuda",
+         "source": "deacon_tpu_torch/csrc/values_argmin.cu",
+         "replaces": "deacon_tpu/ops/pallas_kernels.py:793",
+         "launches": p4["windows"]["4b"]["timed_window_launches"]["K5"],
+         "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": None,
+         "shapes": "sum over the three default tiles at k=31, w=15"},
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the main path was never launched")
     print(f"[total] {time.perf_counter() - t_all:.3f} s "
           f"phase3_launches={json.dumps(launches3)} "
-          f"phase6_launches={json.dumps(launches6)}", flush=True)
+          f"phase6_launches={json.dumps(launches6)} "
+          f"phase11_launches={json.dumps(p11['filter'])} "
+          f"window_7b_launches="
+          f"{json.dumps(p7['windows']['7b']['timed_window_launches'])}",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print("kernels: K1 select_compact, K2 radix_probe, K3 values_select",
-          flush=True)
+    print("kernels: K1 select_compact, K2 radix_probe, K3 values_select, "
+          "K4 select_csum, K5 values_argmin", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

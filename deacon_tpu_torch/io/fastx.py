@@ -8,7 +8,7 @@ records may span multiple lines (ref behavior: needletail normalizes,
 exercised by tests/filter_tests.rs:1132-1187).
 
 Pure-Python parser; compression codecs are imported only when a stream
-needs them.
+needs them (zstd through the system's libzstd, io/zstd.py).
 """
 
 from __future__ import annotations
@@ -45,12 +45,14 @@ def open_maybe_compressed(path: str | os.PathLike | None) -> BinaryIO:
     if path is None or str(path) == "-":
         raw: BinaryIO = sys.stdin.buffer
         stream = io.BufferedReader(_UnseekableWrapper(raw), buffer_size=1 << 20)
+        name = "<stdin>"
     else:
         stream = open(path, "rb", buffering=1 << 20)
+        name = str(path)
     head = stream.peek(8)[:8]
     for magic, kind in _MAGICS:
         if head.startswith(magic):
-            return _decompress_stream(stream, kind)
+            return _decompress_stream(stream, kind, name)
     return stream
 
 
@@ -69,17 +71,15 @@ class _UnseekableWrapper(io.RawIOBase):
         return len(data)
 
 
-def _decompress_stream(stream: BinaryIO, kind: str) -> BinaryIO:
+def _decompress_stream(stream: BinaryIO, kind: str, name: str) -> BinaryIO:
     if kind == "gz":
         import gzip
 
         return io.BufferedReader(gzip.GzipFile(fileobj=stream), buffer_size=1 << 20)
     if kind == "zst":
-        import zstandard
+        from . import zstd
 
-        return io.BufferedReader(
-            zstandard.ZstdDecompressor().stream_reader(stream), buffer_size=1 << 20
-        )
+        return io.BufferedReader(zstd.Reader(stream, name), buffer_size=1 << 20)
     if kind == "xz":
         import lzma
 

@@ -68,11 +68,11 @@ def get_writer(output_path: str, compression_level: int) -> FastxWriter:
         )
     if output_path.endswith(".zst"):
         _validate_level(compression_level, 1, 22, "zstd")
-        import zstandard
+        from . import zstd
 
+        zstd.library(output_path)  # fails before the file is created
         f = open(output_path, "wb", buffering=OUTPUT_BUFFER_SIZE)
-        cctx = zstandard.ZstdCompressor(level=compression_level)
-        zw = cctx.stream_writer(f)
+        zw = zstd.Writer(f, compression_level, output_path)
         return FastxWriter(zw, finisher=zw.close, closer=f.close)
     if output_path.endswith(".xz"):
         _validate_level(compression_level, 0, 9, "xz")

@@ -1,9 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a
-shared library with a plain C interface, ``_build/libdeacon_kernels.so``
-inside the package (listed in .gitignore); ``ctypes`` binds it. The build
-runs at first use in a process and again whenever a hash of the sources
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by an ``nvcc`` process of
+its own, all started together, and one more ``nvcc`` call links the
+objects into a shared library with a plain C interface,
+``_build/libdeacon_kernels.so`` inside the package (listed in
+.gitignore); ``ctypes`` binds it. The build runs at first use in a
+process and again whenever a hash of the sources (``*.cu`` and ``*.cuh``)
 and flags changes; a file lock keeps concurrent processes from building
 over each other. Nothing here runs at import time.
 """
@@ -27,7 +29,7 @@ LIB_PATH = BUILD_DIR / "libdeacon_kernels.so"
 _STAMP = BUILD_DIR / "libdeacon_kernels.sha256"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -55,7 +57,7 @@ def _sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*SRC_DIR.glob("*.cu"), *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -75,23 +77,37 @@ def build() -> float | None:
             and _STAMP.read_text() == digest
         ):
             return None
-        tmp = BUILD_DIR / f"libdeacon_kernels.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
+        nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+        tmp = BUILD_DIR / f"libdeacon_kernels.{tag}.so"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+                  if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                failed.append((cmd, link.returncode, link.stdout))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+            raise RuntimeError("\n".join(
+                f"nvcc failed ({rc}): {' '.join(c)}\n{out}"
+                for c, rc, out in failed))
         os.replace(tmp, LIB_PATH)
         _STAMP.write_text(digest)
-    print(f"deacon_tpu_torch: nvcc built {LIB_PATH.name} in {seconds:.2f} s",
-          file=sys.stderr)
-    for line in (proc.stdout + proc.stderr).splitlines():
+    print(f"deacon_tpu_torch: nvcc built {LIB_PATH.name} from "
+          f"{len(objs)} sources in {seconds:.2f} s", file=sys.stderr)
+    for line in "".join(outs).splitlines():
         if "ptxas info" in line and (
             "registers" in line or "Compiling entry" in line
             or "smem" in line
@@ -119,6 +135,14 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp,
         ]
         lib.dx_values_select.restype = i32
+        lib.dx_select_csum.argtypes = [
+            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp,
+        ]
+        lib.dx_select_csum.restype = i32
+        lib.dx_values_argmin.argtypes = [
+            vp, vp, vp, vp, vp, i32, i32, i32, i32, vp,
+        ]
+        lib.dx_values_argmin.restype = i32
         _lib = lib
     return _lib
 

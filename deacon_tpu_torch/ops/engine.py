@@ -3,13 +3,27 @@ and the index-build extraction.
 
 One engine step per batch of rows of a tile (L, R), all on the device:
 
-1. selection into an (R, Br) slot grid (select_slots): for k <= 32, K1
-   (ops/kernels.select_compact, csrc/extract.cu) computes canonical
-   values, selection keys, window minima, validity and the per-row
-   compaction in one kernel; for 33 <= k <= 57, K3
-   (ops/kernels.values_select, csrc/values_select.cu) writes dense value
-   planes and the packed argmin word, and kernels.compact_rows compacts
-   the flagged windows into the same slot grid;
+1. selection into an (R, Br) slot grid (select_slots), by the tile's
+   route (tile_route, decided once per tile class as the JAX package's
+   engine_arch decides it, with its switches DEACON_ENGINE and
+   DEACON_PALLAS):
+   * "K1" (arch 4: k <= 32, R % 8 == 0, L a power of two): K1
+     (ops/kernels.select_compact, csrc/extract.cu) computes canonical
+     values, selection keys, window minima, validity and the per-row
+     compaction in one kernel;
+   * "K4" (arch 3: L a multiple of 128 but not a power of two, or
+     DEACON_ENGINE=3): K4 (ops/kernels.select_csum,
+     csrc/select_csum.cu) writes the in-row flag cumsum and wp, a
+     per-row searchsorted finds each slot's window and the canonical
+     value at its wp is rebuilt from the packed codes (csum_slots);
+   * "K3" (arch 2: k > 32, R % 8 != 0 or DEACON_ENGINE=2): K3
+     (ops/kernels.values_select, csrc/values_select.cu) writes dense
+     value planes and the packed argmin word, and kernels.compact_rows
+     compacts the flagged windows into the slot grid;
+   * "K5" (DEACON_PALLAS=1, k <= 56, on any tile): K5
+     (ops/kernels.values_argmin, csrc/values_argmin.cu) writes the value
+     at every column and wp, kernels.flag_mask flags the windows, the
+     values are gathered at wp and compacted as after K3;
 2. XXH3-64 of every slot's value, 8 or 16 bytes (ops/hash.py);
 3. the probe stream sorted by (hash, read) and K2
    (ops/kernels.probe_hits, csrc/radix_probe.cu): distinct member hashes
@@ -32,6 +46,8 @@ device as well.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -39,7 +55,14 @@ from ..constants import MAX_K_BUILD, MAX_K_FILTER
 from ..device import resolve_device
 from . import minimizers_np as mnp
 from .hash import as_i64, lsr, xxh3_64, xxh3_64_u128
-from .kernels import compact_rows, select_compact, values_select
+from .kernels import (
+    compact_rows,
+    flag_mask,
+    select_compact,
+    select_csum,
+    values_argmin,
+    values_select,
+)
 from .pack import (
     INDEX_CODE,
     _Row,
@@ -49,21 +72,160 @@ from .pack import (
     rows_for_read,
     v4_row_budget,
 )
-from .radix_probe import build_radix_table, radix_probe_hits, totals_grid
+from .radix_probe import (
+    RadixTable,
+    build_radix_table,
+    radix_probe_hits,
+    totals_grid,
+)
 
 
-def select_slots(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
+# ---------------------------------------------------------------------------
+# The engine's switches, read as the JAX package reads them
+# ---------------------------------------------------------------------------
+
+#: the longest tile row any kernel takes: wp and K4's cumsum fit 16 bits
+MAX_TILE_L = 16384
+
+
+def v3_eligible(k: int, L: int, R: int) -> bool:
+    """The JAX package's _v3_eligible (deacon_tpu/ops/engine.py): the tile
+    shapes its packed-input kernels take, unless DEACON_ENGINE=2."""
+    if os.environ.get("DEACON_ENGINE", "") == "2":
+        return False
+    return k <= 32 and R % 8 == 0 and L % 128 == 0 and L <= MAX_TILE_L
+
+
+def engine_arch(k: int, L: int, R: int) -> int:
+    """The JAX package's engine_arch: 4 for an eligible tile with a
+    power-of-two L, 3 for any other eligible tile or under DEACON_ENGINE=3,
+    2 when not eligible or under DEACON_ENGINE=2."""
+    if not v3_eligible(k, L, R):
+        return 2
+    if os.environ.get("DEACON_ENGINE", "") == "3":
+        return 3
+    if L >= 128 and (L & (L - 1)) == 0:
+        return 4
+    return 3
+
+
+def tile_route(k: int, L: int, R: int, *, index_build: bool = False) -> str:
+    """The selection kernel of a tile class (see select_slots): "K5" under
+    DEACON_PALLAS=1 (the JAX package's forced v1 kernel, k <= 56; any
+    other value selects the default kernels), else "K1", "K4" or "K3" for
+    arch 4, 3 or 2. The index build has no arch 3 (the JAX package's
+    non-v4 build runs its K3 stages), so it takes "K3" there."""
+    if os.environ.get("DEACON_PALLAS", "") == "1" and k <= 56:
+        return "K5"
+    arch = engine_arch(k, L, R)
+    if arch == 4:
+        return "K1"
+    return "K4" if arch == 3 and not index_build else "K3"
+
+
+def tile_classes(tiles, *, k: int, l: int, rows: int,
+                 index_build: bool = False):
+    """The (L, R) tile classes whose rows hold a window of l bases (one of
+    L = l rounded up to 128 and ``rows`` rows if none does), and the route
+    of each row length (tile_route; a row length's first class is the one
+    a pipeline picks). Raises ValueError for a row length no kernel takes:
+    not a multiple of 128, or above MAX_TILE_L."""
+    tiles = [(int(L), int(R)) for L, R in tiles]
+    for L, R in tiles:
+        if L % 128 or not 0 < L <= MAX_TILE_L or R < 1:
+            raise ValueError(
+                f"tile ({L}, {R}): the row length L must be a multiple of "
+                f"128 and at most {MAX_TILE_L}, with R >= 1 rows"
+            )
+    tiles = [(L, R) for L, R in tiles if L >= l] or [
+        (-(-l // 128) * 128, rows)]
+    routes: dict[int, str] = {}
+    for L, R in tiles:
+        routes.setdefault(L, tile_route(k, L, R, index_build=index_build))
+    return tiles, routes
+
+
+def env_tiles():
+    """DEACON_TPU_TILES ("L:R,L:R,...") as (L, R) pairs, or None."""
+    env = os.environ.get("DEACON_TPU_TILES")
+    if not env:
+        return None
+    try:
+        return [tuple(int(x) for x in part.split(":"))
+                for part in env.split(",")]
+    except ValueError:
+        raise ValueError(
+            f"DEACON_TPU_TILES={env!r}: expected L:R,L:R,..."
+        ) from None
+
+
+# ---------------------------------------------------------------------------
+# One engine step
+# ---------------------------------------------------------------------------
+
+_AAAA = as_i64(0xAAAAAAAAAAAAAAAA)
+
+
+def _rev2_64(x: torch.Tensor) -> torch.Tensor:
+    """Reverse the 32 2-bit groups of int64 bit patterns."""
+    for n, m in ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF),
+                 (4, 0x0F0F0F0F0F0F0F0F), (2, 0x3333333333333333)):
+        x = (lsr(x, n) & m) | ((x & m) << n)
+    return lsr(x, 32) | (x << 32)
+
+
+def canonical_at(pc: torch.Tensor, pos: torch.Tensor, k: int):
+    """(R, Br) int64 canonical values (k <= 32) of the k-mers at slot
+    positions, rebuilt from the packed rows: the forward value read from
+    the code stream, its complement with the 2-bit groups reversed, and
+    the unsigned minimum of the two (the JAX package's
+    _stage_hash_packed)."""
+    f, _ = forward_values(pc, pos, k)
+    comp = _AAAA if k == 32 else _AAAA & ((1 << (2 * k)) - 1)
+    r = _rev2_64(f ^ comp)
+    if k < 32:
+        r = lsr(r, 64 - 2 * k)
+    take_f = (f ^ _I64_MIN) <= (r ^ _I64_MIN)
+    return torch.where(take_f, f, r)
+
+
+def csum_slots(pc, plane, tot, *, k: int, Br: int):
+    """K4's plane -> K1's slot grid: slot t of row r holds the window whose
+    in-row inclusive cumsum first reaches t + 1 (a per-row searchsorted of
+    plane >> 16), its wp (plane & 0xFFFF) and the canonical value there.
+    Returns ((R, Br) int32 positions, [(R, Br) int64 values], (R,) int32
+    row totals); slots at or past a row's total are unspecified."""
+    R, L = plane.shape
+    t = torch.arange(1, Br + 1, dtype=torch.int32, device=plane.device)
+    col = torch.searchsorted((plane >> 16).contiguous(),
+                             t[None, :].expand(R, Br).contiguous())
+    pos = plane.gather(1, col.clamp_(max=L - 1)) & 0xFFFF
+    return pos, [canonical_at(pc, pos, k)], tot
+
+
+def select_slots(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int,
+                 route: str):
     """Selected minimizers of every row, compacted in column order into an
-    (R, Br) slot grid: ((R, Br) int32 positions, value planes ([lo] for
-    k <= 32, [lo, hi] for the u128 values of k > 32), (R,) int32 row
-    totals). K1 for k <= 32; K3 and compact_rows above."""
-    if k <= 32:
+    (R, Br) slot grid by the tile's route (tile_route): ((R, Br) int32
+    positions, value planes ([lo] for k <= 32, [lo, hi] for the u128
+    values of k > 32), (R,) int32 row totals)."""
+    if route == "K1":
         pos, val, tot = select_compact(pc, pv, mlen, allow_short, k=k, w=w,
                                        Br=Br)
         return pos, [val], tot
+    if route == "K4":
+        plane, tot = select_csum(pc, pv, mlen, allow_short, k=k, w=w)
+        return csum_slots(pc, plane, tot, k=k, Br=Br)
+    if route == "K5":
+        planes, wp = values_argmin(pc, mlen, k=k, w=w)
+        flag = flag_mask(wp, pv, mlen, allow_short, k=k, w=w)
+        at_wp = wp.to(torch.int64)
+        planes = [p.gather(1, at_wp) for p in planes]
+        return compact_rows(flag, wp, planes, Br)
     lo, hi, wpf = values_select(pc, pv, mlen, allow_short, k=k, w=w)
     # the dense planes are dropped as soon as the slot grid holds them
-    return compact_rows((wpf >> 16) != 0, wpf & 0xFFFF, [lo, hi], Br)
+    return compact_rows((wpf >> 16) != 0, wpf & 0xFFFF,
+                        [lo, hi] if k > 32 else [lo], Br)
 
 
 def hash_planes(planes: list[torch.Tensor]) -> torch.Tensor:
@@ -75,14 +237,14 @@ def hash_planes(planes: list[torch.Tensor]) -> torch.Tensor:
 
 def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, table, *,
                 k: int, w: int, budget: int, num_segments: int,
-                dedup_positions: bool):
+                dedup_positions: bool, route: str):
     """One batch -> (fused (2 * num_segments + 1,) int32: hits per unit,
     totals per unit, then the largest row total; (R,) int32 row totals).
     Units with a row total above ``budget`` have truncated counts."""
     R, Lp = pc.shape
     L = Lp * 4
     pos_c, planes, rt = select_slots(pc, pv, mlen, allow_short, k=k, w=w,
-                                     Br=budget)
+                                     Br=budget, route=route)
     lane = torch.arange(budget, dtype=torch.int32, device=pc.device)
     valid2d = lane[None, :] < torch.clamp(rt, max=budget)[:, None]
     hashes = hash_planes(planes)
@@ -166,7 +328,15 @@ class DevicePipeline:
     batch so distinct-hit counting is exact: a unit needing more than R
     rows gets a batch of its own. A row selecting more than its budget of
     minimizers has its unit rerun on the device at resolve;
-    ``rerun_batches`` and ``rerun_units`` count those reruns."""
+    ``rerun_batches`` and ``rerun_units`` count those reruns.
+
+    ``index_hashes`` holds the index's u64 hashes (a NumPy array or an
+    int64 tensor), or is a RadixTable on this device, which the pipeline
+    shares. ``tiles`` defaults to DEACON_TPU_TILES, then DEFAULT_TILES.
+    Each tile class's selection kernel (``routes``, by row length) is
+    decided once here from (k, L, R) and the switches (tile_route): a
+    batch packs only the rows it has, so its row count never decides the
+    route. The probe is K2 on every route."""
 
     #: (row_len, rows_per_batch) tile classes, ascending; last holds chunks
     DEFAULT_TILES = ((256, 8192), (2048, 2048), (16384, 512))
@@ -184,17 +354,21 @@ class DevicePipeline:
         self.k, self.w = int(k), int(w)
         self.l = self.k + self.w - 1
         self.budget_frac = default_budget_frac(self.w)
-        tiles = tiles or self.DEFAULT_TILES
-        self.tiles = [(int(L), int(R)) for L, R in tiles if L >= self.l]
-        if not self.tiles:
-            self.tiles = [(-(-self.l // 128) * 128, 4096)]
-        if isinstance(index_hashes, torch.Tensor):
-            keys = index_hashes.to(self.device, torch.int64)
+        self.tiles, self.routes = tile_classes(
+            tiles or env_tiles() or self.DEFAULT_TILES, k=self.k, l=self.l,
+            rows=4096)
+        if isinstance(index_hashes, RadixTable):
+            if index_hashes.slots.device != self.device:
+                raise ValueError("the radix table is not on this device")
+            self.table = index_hashes  # shared, not copied
         else:
-            arr = np.ascontiguousarray(index_hashes, dtype=np.uint64)
-            keys = torch.from_numpy(arr.view(np.int64)).to(self.device)
-        self.table = build_radix_table(keys)
-        del keys
+            if isinstance(index_hashes, torch.Tensor):
+                keys = index_hashes.to(self.device, torch.int64)
+            else:
+                arr = np.ascontiguousarray(index_hashes, dtype=np.uint64)
+                keys = torch.from_numpy(arr.view(np.int64)).to(self.device)
+            self.table = build_radix_table(keys)
+            del keys
         self.L_max = self.tiles[-1][0]
         self._stride = self.L_max - self.l + 1
         self.fetch_group = FetchGroup()
@@ -304,7 +478,7 @@ class DevicePipeline:
             pc, pv, mlen, allow_short, rid, mate, cstart, self.table,
             k=self.k, w=self.w, budget=budget, num_segments=n_units,
             # only the largest tile class ever holds chunked long reads
-            dedup_positions=L >= self.L_max,
+            dedup_positions=L >= self.L_max, route=self.routes[L],
         )
 
     def counts_single(self, seqs: list[bytes], prefix_length: int):
@@ -412,12 +586,12 @@ def entropy_keep(pc: torch.Tensor, pos: torch.Tensor, keep_table, k: int):
 
 
 def extract_step(pc, pv, mlen, allow_short, keep_table, *, k: int, w: int,
-                 Br: int):
+                 Br: int, route: str):
     """Index-build extraction of one batch (ref: src/minimizers.rs:125-191):
     ((R, Br) int64 hashes, (R, Br) bool valid slots, (R,) int32 row
     totals). A row whose total exceeds Br has only its first Br slots."""
     pos, planes, rt = select_slots(pc, pv, mlen, allow_short, k=k, w=w,
-                                   Br=Br)
+                                   Br=Br, route=route)
     lane = torch.arange(Br, dtype=torch.int32, device=pc.device)
     valid = lane[None, :] < torch.clamp(rt, max=Br)[:, None]
     if keep_table is not None:
@@ -433,7 +607,9 @@ class IndexBuildPipeline:
     filter's tile classes and chunk rule (pack.chunk_rows) without its
     prefix cut or newline strip. A row selecting more minimizers than its
     slot budget runs again on the device with a budget that holds them
-    all (``rerun_rows`` counts those rows)."""
+    all (``rerun_rows`` counts those rows). Each tile class's selection
+    kernel is tile_route's with ``index_build=True``: K1, K3, or K5 under
+    DEACON_PALLAS=1."""
 
     DEFAULT_TILES = DevicePipeline.DEFAULT_TILES
     #: batches launched before their results are collected
@@ -450,10 +626,9 @@ class IndexBuildPipeline:
         self.k, self.w = int(k), int(w)
         self.l = self.k + self.w - 1
         self.budget_frac = default_budget_frac(self.w)
-        tiles = tiles or self.DEFAULT_TILES
-        self.tiles = [(int(L), int(R)) for L, R in tiles if L >= self.l]
-        if not self.tiles:
-            self.tiles = [(-(-self.l // 128) * 128, 512)]
+        self.tiles, self.routes = tile_classes(
+            tiles or self.DEFAULT_TILES, k=self.k, l=self.l, rows=512,
+            index_build=True)
         self.L_max = self.tiles[-1][0]
         self._stride = self.L_max - self.l + 1
         self.entropy = float(entropy_threshold)
@@ -478,7 +653,7 @@ class IndexBuildPipeline:
         )
         h, valid, rt = extract_step(pc, pv, mlen, allow_short,
                                     self._keep_table, k=self.k, w=self.w,
-                                    Br=Br)
+                                    Br=Br, route=self.routes[L])
         return h, valid, rt, rid
 
     def _collect(self, launched, out_h, out_r) -> None:

@@ -6,6 +6,10 @@
   ``radix_probe_hits`` (deacon_tpu/ops/radix_probe.py).
 * K3 ``values_select`` (csrc/values_select.cu) replaces the TPU kernel
   ``values_select_fused`` (deacon_tpu/ops/pallas_kernels.py).
+* K4 ``select_csum`` (csrc/select_csum.cu) replaces the TPU kernel
+  ``select_csum_packed`` (deacon_tpu/ops/pallas_kernels.py).
+* K5 ``values_argmin`` (csrc/values_argmin.cu) replaces the TPU kernel
+  ``values_argmin_fused`` (deacon_tpu/ops/pallas_kernels.py).
 
 A wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel on the current stream (no synchronisation)
@@ -41,6 +45,26 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         )
     if t.device != device or not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous on {device}")
+
+
+def _check_tile(name: str, pc, pv, mlen, allow_short, k: int, w: int,
+                kmax: int):
+    R, Lp = pc.shape
+    L = Lp * 4
+    if not (1 <= k <= kmax and w >= 1):
+        raise ValueError(f"{name} supports 1 <= k <= {kmax}, got k={k}")
+    if L % 128 or not 0 < L <= 16384:
+        raise ValueError(f"{name}: bad tile L={L} (need 128 | L <= 16384)")
+    dev = pc.device
+    _require(pc, "packed codes", torch.uint8, (R, L // 4), dev)
+    if pv is not None:
+        _require(pv, "packed validity", torch.uint8, (R, L // 8), dev)
+    _require(mlen, "mlen", torch.int32, (R,), dev)
+    if allow_short is not None:
+        _require(allow_short, "allow_short", torch.bool, (R,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return R, L, dev
 
 
 # ---------------------------------------------------------------------------
@@ -117,38 +141,30 @@ def _canonical_plain(codes: torch.Tensor, k: int):
     return [torch.where(take_f, f[0], r[0]), torch.where(take_f, f[1], r[1])]
 
 
-def _select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
-    """The selection both extraction kernels compute, in plain PyTorch:
-    (canonical value planes at every column ([lo] or [lo, hi], see
-    _canonical_plain), (R, L) int64 leftmost window minimum wp, (R, L)
-    bool final candidate flag)."""
+def _unpack_codes(pc: torch.Tensor) -> torch.Tensor:
+    """(R, L/4) uint8 packed codes -> (R, L) int64 2-bit codes."""
+    R, Lp = pc.shape
+    pc64 = pc.to(torch.int64)
+    return torch.stack(
+        [(pc64 >> (2 * j)) & 3 for j in range(4)], dim=2
+    ).reshape(R, 4 * Lp)
+
+
+def _values_wp(pc, mlen, *, k: int, w: int):
+    """Canonical value planes at every column ([lo] or [lo, hi], see
+    _canonical_plain) and the (R, L) int64 leftmost window minimum wp of
+    the selection keys (fmix32 of the value's folded 32-bit limbs, the
+    column in the low 16 bits; the largest priority past mlen)."""
     R, Lp = pc.shape
     L = Lp * 4
-    dev = pc.device
-    pc64 = pc.to(torch.int64)
-    codes = torch.stack(
-        [(pc64 >> (2 * j)) & 3 for j in range(4)], dim=2
-    ).reshape(R, L)
-    pv64 = pv.to(torch.int64)
-    valid = torch.stack(
-        [(pv64 >> j) & 1 for j in range(8)], dim=2
-    ).reshape(R, L)
-    canon = _canonical_plain(codes, k)
-    fold = torch.zeros_like(codes)
+    canon = _canonical_plain(_unpack_codes(pc), k)
+    fold = torch.zeros_like(canon[0])
     for v in canon:
         fold = fold ^ (v & _M32) ^ lsr(v, 32)
-    col = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
-    m = mlen.to(torch.int64)[:, None]
-    in_row = col < m
+    col = torch.arange(L, dtype=torch.int64, device=pc.device)[None, :]
+    in_row = col < mlen.to(torch.int64)[:, None]
     prio = _fmix32(fold) & 0xFFFF0000
     t = torch.where(in_row, prio, 0xFFFF0000) | col
-    # k-mer validity: no invalid base in [c, c+k), the row's end included
-    inv = torch.cat([
-        torch.zeros((R, 1), dtype=torch.int64, device=dev),
-        1 - valid,
-        torch.ones((R, k), dtype=torch.int64, device=dev),
-    ], dim=1).cumsum(dim=1)
-    kv = ((inv[:, k:k + L] - inv[:, :L]) == 0) & in_row
     # leftmost window minimum by doubling (keys are distinct)
     span = 1
     while span * 2 <= w:
@@ -156,7 +172,32 @@ def _select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
         span *= 2
     if w - span > 0:
         t = torch.minimum(t, _shift_cols(t, w - span, _M32))
-    wp = torch.clamp(t & 0xFFFF, max=L - 1)
+    return canon, torch.clamp(t & 0xFFFF, max=L - 1)
+
+
+def flag_mask(wp, pv, mlen, allow_short, *, k: int, w: int) -> torch.Tensor:
+    """(R, L) bool final candidate flag of every window, from its argmin
+    wp ((R, L) integer) and the row's validity bits pv (R, L/8) uint8:
+    window valid (c <= mlen - w, or c == 0 for a short read with
+    allow_short and mlen >= 1), a new minimum (c == 0 or wp changes) and
+    an ACGT-valid k-mer at wp, inside the row. The counterpart of the JAX
+    package's _stage_flag_mask."""
+    R, L = wp.shape
+    dev = wp.device
+    wp = wp.to(torch.int64)
+    pv64 = pv.to(torch.int64)
+    valid = torch.stack(
+        [(pv64 >> j) & 1 for j in range(8)], dim=2
+    ).reshape(R, L)
+    col = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
+    m = mlen.to(torch.int64)[:, None]
+    # k-mer validity: no invalid base in [c, c+k), the row's end included
+    inv = torch.cat([
+        torch.zeros((R, 1), dtype=torch.int64, device=dev),
+        1 - valid,
+        torch.ones((R, k), dtype=torch.int64, device=dev),
+    ], dim=1).cumsum(dim=1)
+    kv = ((inv[:, k:k + L] - inv[:, :L]) == 0) & (col < m)
     prev = torch.cat([
         torch.full((R, 1), -1, dtype=torch.int64, device=dev), wp[:, :-1]
     ], dim=1)
@@ -164,8 +205,16 @@ def _select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
     win_valid = (col <= m - w) | (
         (col == 0) & allow_short.to(torch.bool)[:, None] & (m >= 1)
     )
-    flag = win_valid & new_min & kv.gather(1, wp)
-    return canon, wp, flag
+    return win_valid & new_min & kv.gather(1, wp)
+
+
+def _select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
+    """The selection every extraction kernel computes, in plain PyTorch:
+    (canonical value planes at every column ([lo] or [lo, hi], see
+    _canonical_plain), (R, L) int64 leftmost window minimum wp, (R, L)
+    bool final candidate flag)."""
+    canon, wp = _values_wp(pc, mlen, k=k, w=w)
+    return canon, wp, flag_mask(wp, pv, mlen, allow_short, k=k, w=w)
 
 
 def compact_rows(flag: torch.Tensor, wp: torch.Tensor,
@@ -215,21 +264,12 @@ def select_compact(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
     """K1 wrapper: same arguments and results as select_compact_plain.
     Constraints (the TPU kernel's): k <= 32, 128 | L <= 16384,
     128 | Br <= L."""
-    R, Lp = pc.shape
-    L = Lp * 4
-    if not (1 <= k <= 32 and w >= 1):
-        raise ValueError(f"select_compact supports 1 <= k <= 32, got k={k}")
-    if L % 128 or L > 16384 or Br % 128 or not 0 < Br <= L:
+    R, L, dev = _check_tile("select_compact", pc, pv, mlen, allow_short, k,
+                            w, 32)
+    if Br % 128 or not 0 < Br <= L:
         raise ValueError(f"select_compact: bad tile L={L}, Br={Br}")
-    dev = pc.device
-    _require(pc, "packed codes", torch.uint8, (R, L // 4), dev)
-    _require(pv, "packed validity", torch.uint8, (R, L // 8), dev)
-    _require(mlen, "mlen", torch.int32, (R,), dev)
-    _require(allow_short, "allow_short", torch.bool, (R,), dev)
     if dev.type == "cpu":
         return select_compact_plain(pc, pv, mlen, allow_short, k=k, w=w, Br=Br)
-    if dev.type != "cuda":
-        raise ValueError(f"select_compact: unsupported device {dev}")
     from . import _build
 
     lib = _build.library()
@@ -270,21 +310,10 @@ def values_select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
 def values_select(pc, pv, mlen, allow_short, *, k: int, w: int):
     """K3 wrapper: same arguments and results as values_select_plain.
     Constraints: 1 <= k <= 57, 128 | L <= 16384."""
-    R, Lp = pc.shape
-    L = Lp * 4
-    if not (1 <= k <= 57 and w >= 1):
-        raise ValueError(f"values_select supports 1 <= k <= 57, got k={k}")
-    if L % 128 or not 0 < L <= 16384:
-        raise ValueError(f"values_select: bad tile L={L}")
-    dev = pc.device
-    _require(pc, "packed codes", torch.uint8, (R, L // 4), dev)
-    _require(pv, "packed validity", torch.uint8, (R, L // 8), dev)
-    _require(mlen, "mlen", torch.int32, (R,), dev)
-    _require(allow_short, "allow_short", torch.bool, (R,), dev)
+    R, L, dev = _check_tile("values_select", pc, pv, mlen, allow_short, k,
+                            w, 57)
     if dev.type == "cpu":
         return values_select_plain(pc, pv, mlen, allow_short, k=k, w=w)
-    if dev.type != "cuda":
-        raise ValueError(f"values_select: unsupported device {dev}")
     from . import _build
 
     lib = _build.library()
@@ -301,6 +330,88 @@ def values_select(pc, pv, mlen, allow_short, *, k: int, w: int):
 
 
 values_select.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: flag cumsum plane (arch 3)
+# ---------------------------------------------------------------------------
+
+def select_csum_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
+    """Plain PyTorch version of K4 (the same function as the kernel).
+
+    Inputs as select_compact_plain. Returns ((R, L) int32 plane, (R,)
+    int32 row totals): plane = (in-row inclusive cumsum of the final
+    candidate flag << 16) | wp, and the total is the row's flag count."""
+    _, wp, flag = _select_plain(pc, pv, mlen, allow_short, k=k, w=w)
+    cs = flag.to(torch.int32).cumsum(dim=1, dtype=torch.int32)
+    return (cs << 16) | wp.to(torch.int32), cs[:, -1].contiguous()
+
+
+def select_csum(pc, pv, mlen, allow_short, *, k: int, w: int):
+    """K4 wrapper: same arguments and results as select_csum_plain.
+    Constraints: 1 <= k <= 32, 128 | L <= 16384 (wp and the cumsum share
+    one int32 word)."""
+    R, L, dev = _check_tile("select_csum", pc, pv, mlen, allow_short, k, w,
+                            32)
+    if dev.type == "cpu":
+        return select_csum_plain(pc, pv, mlen, allow_short, k=k, w=w)
+    from . import _build
+
+    lib = _build.library()
+    plane = torch.empty((R, L), dtype=torch.int32, device=dev)
+    tot = torch.empty((R,), dtype=torch.int32, device=dev)
+    err = lib.dx_select_csum(
+        _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(plane),
+        _ptr(tot), R, L, k, w, _stream(dev),
+    )
+    _build.check(err, "select_csum launch")
+    select_csum.launches += 1
+    return plane, tot
+
+
+select_csum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: values at every position and the window argmin (forced v1)
+# ---------------------------------------------------------------------------
+
+def values_argmin_plain(pc, mlen, *, k: int, w: int):
+    """Plain PyTorch version of K5 (the same function as the kernel).
+
+    pc (R, L/4) uint8 packed codes, mlen (R,) int32. Returns (value
+    planes, (R, L) int32 wp): the canonical value of the k-mer AT each
+    column as int64 planes ([lo] for k <= 32, [lo, hi] above; bases past
+    L count as 0 on both strands), and the leftmost window minimum of the
+    selection keys over [c, c + w). No validity and no flag: flag_mask
+    and a gather at wp follow it."""
+    canon, wp = _values_wp(pc, mlen, k=k, w=w)
+    return canon, wp.to(torch.int32)
+
+
+def values_argmin(pc, mlen, *, k: int, w: int):
+    """K5 wrapper: same arguments and results as values_argmin_plain.
+    Constraints: 1 <= k <= 56, 128 | L <= 16384."""
+    R, L, dev = _check_tile("values_argmin", pc, None, mlen, None, k, w, 56)
+    if dev.type == "cpu":
+        return values_argmin_plain(pc, mlen, k=k, w=w)
+    from . import _build
+
+    lib = _build.library()
+    planes = [torch.empty((R, L), dtype=torch.int64, device=dev)
+              for _ in range(1 if k <= 32 else 2)]
+    wp = torch.empty((R, L), dtype=torch.int32, device=dev)
+    err = lib.dx_values_argmin(
+        _ptr(pc), _ptr(mlen), _ptr(planes[0]),
+        _ptr(planes[1]) if k > 32 else None, _ptr(wp), R, L, k, w,
+        _stream(dev),
+    )
+    _build.check(err, "values_argmin launch")
+    values_argmin.launches += 1
+    return planes, wp
+
+
+values_argmin.launches = 0
 
 
 # ---------------------------------------------------------------------------

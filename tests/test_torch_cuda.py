@@ -1,4 +1,6 @@
-"""K1, K2 and K3 on the card against their plain PyTorch versions, exact.
+"""K1-K5 on the card against their plain PyTorch versions, exact, and the
+pipeline and index build on the card against the CPU, under the engine's
+switches too.
 
 Marked ``cuda``: each test asks a fixture whether a card is present and
 skips without one (the decision is never taken at import or collection,
@@ -72,6 +74,35 @@ def test_k3_kernel_matches_plain(cuda, k, w, L, R):
     assert int((got[2] >> 16).sum()) > 0
 
 
+@pytest.mark.parametrize("k,w,L,R", [(31, 15, 384, 4096), (31, 15, 1152, 64),
+                                     (31, 15, 12288, 32), (15, 5, 1152, 16),
+                                     (32, 7, 256, 8), (5, 3, 128, 8)])
+def test_k4_kernel_matches_plain(cuda, k, w, L, R):
+    rng = np.random.default_rng(k + w + L + 2)
+    args = [a.to(cuda) for a in _tile(rng, R, L, k, w)]
+    got = tk.select_csum(*args, k=k, w=w)
+    want = tk.select_csum_plain(*args, k=k, w=w)
+    torch.cuda.synchronize()
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("k,w,L,R", [(31, 15, 256, 64), (41, 15, 2048, 16),
+                                     (56, 9, 2048, 16), (21, 11, 16384, 8),
+                                     (41, 15, 16384, 64), (5, 3, 128, 8)])
+def test_k5_kernel_matches_plain(cuda, k, w, L, R):
+    rng = np.random.default_rng(k + w + L + 3)
+    pc, _, mlen, _ = [a.to(cuda) for a in _tile(rng, R, L, k, w)]
+    planes, wp = tk.values_argmin(pc, mlen, k=k, w=w)
+    pplanes, pwp = tk.values_argmin_plain(pc, mlen, k=k, w=w)
+    torch.cuda.synchronize()
+    assert len(planes) == len(pplanes) == (1 if k <= 32 else 2)
+    assert torch.equal(wp, pwp)
+    for g, w_ in zip(planes, pplanes):
+        assert torch.equal(g, w_)
+
+
 @pytest.mark.parametrize("spill", [False, True])
 def test_k2_kernel_matches_plain(cuda, spill):
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -125,6 +156,50 @@ def test_pipeline_on_card_matches_cpu(cuda):
     assert pipe.rerun_units >= 2
 
 
+_SWITCHES = [
+    ({"DEACON_TPU_TILES": "384:64,1152:32,12288:8"}, 31, "K4", None),
+    ({"DEACON_ENGINE": "3"}, 31, "K4", ((256, 64), (1024, 32))),
+    ({"DEACON_ENGINE": "2"}, 31, "K3", ((256, 64), (1024, 32))),
+    ({"DEACON_PALLAS": "1"}, 31, "K5", ((256, 64), (1024, 32))),
+    ({"DEACON_PALLAS": "1"}, 41, "K5", ((256, 64), (1024, 32))),
+]
+
+
+@pytest.mark.parametrize("env,k,kernel,tiles", _SWITCHES)
+def test_pipeline_under_switch_on_card_matches_cpu(cuda, monkeypatch, env, k,
+                                                   kernel, tiles):
+    """Each switch routes the card's pipeline through its kernel, and the
+    counts equal the CPU's (plain versions) under the same switch."""
+    from deacon_tpu_torch.ops.minimizers_np import compute_minimizer_hashes
+
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    rng = np.random.default_rng(k + 5)
+    genome = rng.choice(_B, size=100_000).tobytes()
+    idx = np.unique(compute_minimizer_hashes(genome, k, 15))
+    seqs = []
+    for _ in range(200):
+        n = int(rng.integers(k, 14_000))
+        s = int(rng.integers(0, len(genome) - n))
+        seqs.append(genome[s:s + n] if rng.random() < 0.5
+                    else rng.choice(_B, size=n).tobytes())
+    seqs[5] = genome[:300] + b"A" * 700
+    seqs[50] = b"CAG" * 300 + genome[900:1000]
+    pipe = DevicePipeline(idx, k, 15, tiles=tiles, device=cuda)
+    assert set(pipe.routes.values()) == {kernel}
+    launches = {"K1": tk.select_compact, "K3": tk.values_select,
+                "K4": tk.select_csum, "K5": tk.values_argmin}
+    for f in launches.values():
+        f.launches = 0
+    got = pipe.counts_single(seqs, 0)
+    want = DevicePipeline(idx, k, 15, tiles=tiles, device="cpu").counts_single(
+        seqs, 0)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)
+    assert pipe.rerun_units >= 2
+    assert {n for n, f in launches.items() if f.launches} == {kernel}
+
+
 def test_wide_k_pipeline_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(4)
     genome = rng.choice(_B, size=100_000).tobytes()
@@ -164,6 +239,30 @@ def test_index_build_on_card_matches_cpu(cuda, k, e):
     keys = []
     for dev in (cuda, "cpu"):
         pipe = IndexBuildPipeline(k, 15, e, device=dev)
+        d = DistinctHashes(pipe.device)
+        running = d.add(*pipe.extract_batch(seqs), len(seqs))
+        keys.append((d.sorted_u64(), running))
+    np.testing.assert_array_equal(keys[0][0], keys[1][0])
+    np.testing.assert_array_equal(keys[0][1], keys[1][1])
+
+
+@pytest.mark.parametrize("env,k,kernel", [({"DEACON_PALLAS": "1"}, 31, "K5"),
+                                          ({"DEACON_PALLAS": "1"}, 41, "K5"),
+                                          ({"DEACON_ENGINE": "3"}, 31, "K3")])
+def test_index_build_under_switch_on_card_matches_cpu(cuda, monkeypatch, env,
+                                                      k, kernel):
+    from deacon_tpu_torch.ops.engine import DistinctHashes, IndexBuildPipeline
+
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    rng = np.random.default_rng(k + 9)
+    seqs = [rng.choice(_B, size=int(n)).tobytes()
+            for n in rng.integers(10, 40_000, 12)]
+    seqs[3] = b"ACAC" * 600 + seqs[3]
+    keys = []
+    for dev in (cuda, "cpu"):
+        pipe = IndexBuildPipeline(k, 15, 0.5, device=dev)
+        assert set(pipe.routes.values()) == {kernel}
         d = DistinctHashes(pipe.device)
         running = d.add(*pipe.extract_batch(seqs), len(seqs))
         keys.append((d.sorted_u64(), running))

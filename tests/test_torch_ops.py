@@ -265,7 +265,8 @@ def test_k3_slots_match_oracle(k, w):
     arrs = tpack.pack_rows_packed(rows, len(rows), L, k, l,
                                   code_table=tpack.INDEX_CODE)
     pos, planes, tot = teng.select_slots(
-        *(torch.from_numpy(a) for a in arrs[:4]), k=k, w=w, Br=L)
+        *(torch.from_numpy(a) for a in arrs[:4]), k=k, w=w, Br=L,
+        route="K3")
     h = _u64(teng.hash_planes(planes))
     for i, s in enumerate(seqs):
         want = jmnp.compute_minimizer_hashes(s, k, w)
