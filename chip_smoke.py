@@ -53,15 +53,30 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    each with its launch counters checked;
 12. ``filter`` with .zst input and output on the card through libzstd;
    whether libzstd.so.1 loaded is printed;
+13. K2's sharded form on phase 4's table, rebuilt on the card shard by
+   shard (build_radix_shards) for S = 4 and S = 3 (uneven row ranges),
+   and the main-path stream: the blocks concatenated equal the table,
+   each shard's hits equal its plain version's, and their sum the
+   unsharded K2's hits exactly; times of the S launches and the
+   unsharded one, and the bound;
+14. ``filter --mesh``: --mesh 1x1 on the card byte-identical to the run
+   without --mesh and to --device cpu --mesh 2x4, single and paired;
+   --mesh 1x2 on one card exits 1 with "need 2 devices, have 1";
 4a, 4b, 4c, 7b: phase 4's reads once more against its table under
    DEACON_TPU_TILES=384:4096,1152:2048,12288:512 (K4), DEACON_PALLAS=1
    (K5) and no switch (K1, a control run in the same place as the other
    two), and phase 7's under DEACON_PALLAS=1 (K5): every unit equal to
    the phase's reference counts, with Mbp/s, busy share, reruns and the
-   window's launches of each kernel.
+   window's launches of each kernel;
+4d: phase 4's reads through ShardedDecider on make_mesh(2, 4,
+   ["cuda:0"] * 8) (two data rows, four table shards on the one card):
+   every unit equal to phase 4's reference, K2 launched 4 times per
+   batch, with Mbp/s, busy share, reruns, launches, the shard build's
+   seconds and GB and the peak memory.
 
-Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 4, 4a, 4b, 4c, 5, 6,
-7, 7b, 8. Each switch is set in os.environ only around its phase.
+Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 14, 4, 4a, 4b, 4c, 13,
+4d, 5, 6, 7, 7b, 8. Each switch is set in os.environ only around its
+phase.
 
 Every temporary file lives in a tempfile directory outside the checkout
 and is deleted; nothing is left running. Exits non-zero, printing no
@@ -74,6 +89,7 @@ card's name and power limit.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -87,7 +103,7 @@ import torch
 
 import deacon_tpu_torch as dtt
 from deacon_tpu_torch.cli import main as cli_main
-from deacon_tpu_torch.filter.engine import DeviceDecider
+from deacon_tpu_torch.filter.engine import DeviceDecider, ShardedDecider
 from deacon_tpu_torch.index.store import load_header_and_count
 from deacon_tpu_torch.io import zstd
 from deacon_tpu_torch.io.fastx import open_maybe_compressed
@@ -103,10 +119,12 @@ from deacon_tpu_torch.ops.pack import (
     v4_row_budget,
 )
 from deacon_tpu_torch.ops.radix_probe import (
+    build_radix_shards,
     build_radix_table,
     prep_sorted,
     sorted_unique_keys,
 )
+from deacon_tpu_torch.parallel.sharded import make_mesh
 from deacon_tpu_torch.utils.xxh3 import xxh3_64_u64, xxh3_64_u128
 
 SEED = 20261017
@@ -842,6 +860,83 @@ def phase11_switch_cli(rng) -> dict:
     return out
 
 
+def phase14_mesh_cli(rng) -> dict:
+    """``filter --mesh``: on the card with --mesh 1x1, byte-identical to
+    the same run without --mesh and to --device cpu --mesh 2x4, single
+    and paired (-O); --mesh 1x2 with one card exits 1 with "need 2
+    devices, have 1" on stderr."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_mesh_")
+    out: dict = {}
+    try:
+        genome = rand_seq(rng, 400_000)
+        fa = os.path.join(tmp, "genome.fa")
+        write_fasta(fa, [(b"genome", genome)])
+        idx = os.path.join(tmp, "genome.idx")
+        cli_index_build(fa, idx, K_, W_, "cuda")
+        single = [(b"s%d" % i, sample_read(rng, genome, 150))
+                  for i in range(1500)]
+        single += [(b"long%d" % i,
+                    sample_read(rng, genome, int(rng.integers(2000, 20000))))
+                   for i in range(10)]
+        single += [(b"lowc%d" % i, sample_read(rng, genome, 600)
+                    + low_complexity(rng, int(rng.integers(600, 1400))))
+                   for i in range(6)]
+        pairs = [(sample_read(rng, genome, 150),
+                  sample_read(rng, genome, 150)) for _ in range(500)]
+        paths = {n: os.path.join(tmp, n) for n in ("s.fq", "r1.fq", "r2.fq")}
+        write_fastq(paths["s.fq"], single)
+        write_fastq(paths["r1.fq"], [(b"p%d/1" % i, a)
+                                     for i, (a, _) in enumerate(pairs)])
+        write_fastq(paths["r2.fq"], [(b"p%d/2" % i, b)
+                                     for i, (_, b) in enumerate(pairs)])
+        for name, inputs in (("single", [paths["s.fq"]]),
+                             ("paired", [paths["r1.fq"], paths["r2.fq"]])):
+            got = {}
+            for tag, extra in (("plain", ["--device", "cuda"]),
+                               ("mesh1x1", ["--device", "cuda", "--mesh",
+                                            "1x1"]),
+                               ("cpu2x4", ["--device", "cpu", "--mesh",
+                                           "2x4"])):
+                o = os.path.join(tmp, f"{name}_{tag}.fq")
+                args = ["filter", idx, *inputs, "-o", o, "-a", "2", "-q",
+                        *extra]
+                if len(inputs) == 2:
+                    args += ["-O", o + ".2"]
+                if tag == "mesh1x1":
+                    reset_launches()
+                rc = cli_main(args)
+                if rc != 0:
+                    raise AssertionError(f"CLI exit {rc}: {args}")
+                if tag == "mesh1x1":
+                    out[f"{name}_mesh1x1_launches"] = launch_counts()
+                got[tag] = (read_bytes(o), read_bytes(o + ".2")
+                            if len(inputs) == 2 else b"")
+            if not (got["plain"] == got["mesh1x1"] == got["cpu2x4"]
+                    and got["plain"][0]):
+                raise AssertionError(f"{name}: filter --mesh outputs differ "
+                                     "from the run without --mesh")
+            check_route(out[f"{name}_mesh1x1_launches"], "K1",
+                        f"{name} filter --mesh 1x1")
+            out[f"{name}_bytes"] = len(got["plain"][0]) + len(got["plain"][1])
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(["filter", idx, paths["s.fq"], "-o",
+                           os.path.join(tmp, "m12.fq"), "-q", "--mesh",
+                           "1x2"])
+        cards = torch.cuda.device_count()
+        want = "need 2 devices, have 1" if cards == 1 else None
+        if want is not None and (rc != 1 or want not in err.getvalue()):
+            raise AssertionError(f"--mesh 1x2 on one card: exit {rc}, "
+                                 f"stderr {err.getvalue()!r}")
+        out["mesh1x2"] = {"cards": cards, "exit": rc,
+                          "stderr": err.getvalue().strip()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("14 cli --mesh", t0, **{n: json.dumps(v) for n, v in out.items()})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: panhuman scale against an independent reference
 # ---------------------------------------------------------------------------
@@ -1080,11 +1175,13 @@ def switch_window(table, k: int, reads, ref, n_bp: int, label: str,
     return numbers
 
 
-def panhuman(rng, k: int, phase: str, windows=()) -> dict:
+def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False):
     """Phase 4 (k=31) or 7 (k=41): a panhuman-scale table and ~20 Mbp of
     reads through DeviceDecider, every unit against the reference; then
     the same reads under each of ``windows`` ((label, switches, kernel)),
-    before the table is freed."""
+    and with ``sharded`` phase 13 (K2's sharded form on the table and the
+    main-path stream) and window 4d (the reads through ShardedDecider on
+    a 2x4 mesh of the card), before the table is freed."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
@@ -1145,7 +1242,8 @@ def panhuman(rng, k: int, phase: str, windows=()) -> dict:
     split = where_time_goes(decider, single, pairs, ont, run_s)
     log(f"{phase} where the time goes", t_prof, **{
         name: json.dumps(v) for name, v in split.items()})
-    k2 = None if wide else k2_on_main_path_stream(decider.pipe, single[:8192])
+    stream = None if wide else main_path_stream(decider.pipe, single[:8192])
+    k2 = None if stream is None else measure_k2(table, *stream)
     numbers = {
         "keys": int(keys_u.numel()), "p": table.p, "sp": table.sp,
         "table_gb": round(table.nbytes / 1e9, 3),
@@ -1164,8 +1262,13 @@ def panhuman(rng, k: int, phase: str, windows=()) -> dict:
                                   (hits_ref, tot_ref), n_bp, label, env,
                                   kernel)
              for label, env, kernel in windows}
+    k2_sharded = None
+    if sharded:
+        k2_sharded = phase13_k2_sharded(keys_u, table, stream)
+        extra["4d"] = sharded_window(keys_u, k, (single, pairs, ont),
+                                     (hits_ref, tot_ref), n_bp)
     return {"numbers": numbers, "k2": k2, "launches": launches,
-            "windows": extra}
+            "windows": extra, "k2_sharded": k2_sharded}
 
 
 def measure_k2(table, key, srid, first, n_seg: int) -> dict:
@@ -1209,9 +1312,9 @@ def measure_k2(table, key, srid, first, n_seg: int) -> dict:
             "max_abs_err": err}
 
 
-def k2_on_main_path_stream(pipe: DevicePipeline, reads: list[bytes]) -> dict:
-    """measure_k2 on the stream of one full (256, 8192) batch of 150 bp
-    reads against the panhuman table, built as engine_step builds it."""
+def main_path_stream(pipe: DevicePipeline, reads: list[bytes]):
+    """The sorted stream (key, srid, first) and read count of one full
+    (256, 8192) batch of 150 bp reads, built as engine_step builds it."""
     dev = pipe.device
     L, _ = pipe.tiles[0]
     Br = v4_row_budget(L, pipe.w, pipe.budget_frac)
@@ -1224,7 +1327,160 @@ def k2_on_main_path_stream(pipe: DevicePipeline, reads: list[bytes]) -> dict:
     valid = torch.arange(Br, device=dev)[None, :] < tot.clamp(max=Br)[:, None]
     key, srid, first = prep_sorted(xxh3_64(val), valid,
                                    rid[:, None].expand(len(rows), Br))
-    return measure_k2(pipe.table, key, srid, first, len(rows))
+    return key, srid, first, len(rows)
+
+
+# ---------------------------------------------------------------------------
+# phase 13 and window 4d: K2's sharded form, the sharded filter
+# ---------------------------------------------------------------------------
+
+def phase13_k2_sharded(keys_u, table, stream) -> dict:
+    """K2's sharded form on phase 4's table (rebuilt shard by shard with
+    build_radix_shards, on the card) and the main-path stream, for S = 4
+    and S = 3 (uneven row ranges): the blocks concatenated equal the
+    table's slots; each shard's K2 hits equal its plain version on the
+    same block; their sum equals the unsharded K2's hits exactly. Times:
+    the S launches together and the unsharded launch (time_ms). Bytes:
+    each shard reads the stream (4 B srid per query, 4 B first per real
+    query, 8 B key per live one: at most 16 B per query) and writes its
+    hits, and reads the distinct bucket rows it owns that its live
+    queries touch and the distinct spill rows its non-members touch, 1 KB
+    each."""
+    t0 = time.perf_counter()
+    key, srid, first, n_seg = stream
+    kw = {"p": table.p, "sp": table.sp, "num_segments": n_seg}
+    whole = K.probe_hits(table.slots, table.spill, key, srid, first, **kw)
+    whole_ms = time_ms(lambda: K.probe_hits(
+        table.slots, table.spill, key, srid, first, **kw), 20)
+    real = srid >= 0
+    live = real & (first != 0)
+    q, n_real = key.numel(), int(real.sum())
+    lk = key[live]
+    bucket = lsr(lk, 64 - table.p)
+    main = K._member_plain(table.slots, table.p, lk)
+    out = {"q": q, "p": table.p, "sp": table.sp, "live": int(live.sum()),
+           "unsharded_ms": whole_ms}
+    for n_shard in (4, 3):
+        t_b = time.perf_counter()
+        shards = build_radix_shards(keys_u, n_shard,
+                                    [keys_u.device] * n_shard)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t_b
+        if not torch.equal(torch.cat([t.slots for t in shards]),
+                           table.slots) or any(
+                t.sp != table.sp or (table.sp and not torch.equal(
+                    t.spill, table.spill)) for t in shards):
+            raise AssertionError(f"S={n_shard}: shard blocks differ from the "
+                                 "whole table")
+
+        def launch_all():
+            return [K.probe_hits(t.slots, t.spill, key, srid, first,
+                                 row_lo=t.row_lo, **kw) for t in shards]
+
+        K.probe_hits.launches = 0
+        per = launch_all()
+        if K.probe_hits.launches != n_shard:
+            raise AssertionError(f"S={n_shard}: {K.probe_hits.launches} "
+                                 "launches")
+        err = 0
+        for t, h in zip(shards, per):
+            plain = K.probe_hits_plain(t.slots, t.spill, key, srid, first,
+                                       row_lo=t.row_lo, **kw)
+            err = max(err, int((h - plain).abs().max()))
+        total = sum(per[1:], per[0])
+        if err or not torch.equal(total, whole):
+            raise AssertionError(f"S={n_shard}: sharded K2 differs (plain "
+                                 f"err {err}, sum equal "
+                                 f"{torch.equal(total, whole)})")
+        nbytes, rows, spill_rows = 0, 0, 0
+        for t in shards:
+            own = (bucket >= t.row_lo) & (bucket < t.row_lo + t.slots.shape[0])
+            rows_j = int(torch.unique(bucket[own]).numel())
+            sp_j = 0
+            if table.sp:
+                miss = lk[own & ~main]
+                sp_j = int(torch.unique(lsr(miss, 64 - table.sp)).numel())
+            rows += rows_j
+            spill_rows += sp_j
+            nbytes += (4 * q + 4 * n_real + 8 * lk.numel() + 4 * n_seg
+                       + (rows_j + sp_j) * 1024)
+        ops = (lk.numel() + int((~main).sum()) * (table.sp > 0)) * 128 * 2.0
+        b, by = bound_ms(nbytes, ops)
+        out[f"S{n_shard}"] = {
+            "rows": [t.slots.shape[0] for t in shards],
+            "build_s": round(build_s, 3),
+            "ms": time_ms(launch_all, 20),
+            "plain_ms": time_ms(lambda: [
+                K.probe_hits_plain(t.slots, t.spill, key, srid, first,
+                                   row_lo=t.row_lo, **kw) for t in shards],
+                3, warm=1),
+            "rows_touched": rows, "spill_rows": spill_rows, "bytes": nbytes,
+            "bound_ms": b, "bound_by": by, "max_abs_err": err,
+            "hits": int(total.sum())}
+        del shards, per, total
+        torch.cuda.empty_cache()
+    log("13 K2 sharded parity", t0, **{n: json.dumps(v)
+                                       for n, v in out.items()})
+    return out
+
+
+def sharded_window(keys_u, k: int, reads, ref, n_bp: int) -> dict:
+    """Window 4d: phase 4's reads through ShardedDecider on a 2x4 mesh of
+    the one card ([cuda:0] * 8: eight mesh positions, four table shards
+    shared by the two data rows): every unit equal to the reference, K2
+    launched 4 times per batch (K1 once), Mbp/s, busy share, reruns,
+    launches, the shard build's seconds and GB and the peak memory."""
+    t0 = time.perf_counter()
+    single, pairs, ont = reads
+    torch.cuda.reset_peak_memory_stats()
+    t_b = time.perf_counter()
+    decider = ShardedDecider(keys_u, k, W_,
+                             make_mesh(2, 4, [keys_u.device] * 8))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_b
+    pipe = decider.pipe
+    blocks = {id(t): t for row in pipe.blocks for t in row}.values()
+    block_gb = sum(t.nbytes for t in blocks) / 1e9
+    run_decider(decider, single[:2000], pairs[:1000], ont[:20])
+    torch.cuda.synchronize()
+    pipe.rerun_batches = pipe.rerun_units = 0
+    reset_launches()
+    t_run = time.perf_counter()
+    decisions = run_decider(decider, single, pairs, ont)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = launch_counts()
+    reruns = {"batches": pipe.rerun_batches, "units": pipe.rerun_units}
+    check_route(launches, "K1", "window 4d")
+    if launches["K2"] != 4 * launches["K1"]:
+        raise AssertionError(f"window 4d: K2 must launch 4 times per batch, "
+                             f"launches {launches}")
+    hits_ref, tot_ref = ref
+    got_h = np.array([d[1] for d in decisions])
+    got_t = np.array([d[2] for d in decisions])
+    bad = np.nonzero((got_h != hits_ref) | (got_t != tot_ref))[0]
+    if bad.size:
+        i = int(bad[0])
+        raise AssertionError(
+            f"window 4d: {bad.size} units differ from the reference; first "
+            f"{i}: got {(got_h[i], got_t[i])}, want "
+            f"{(hits_ref[i], tot_ref[i])}")
+    split = where_time_goes(decider, single, pairs, ont, run_s)
+    numbers = {"mesh": pipe.mesh.shape, "blocks": len(blocks),
+               "shard_build_s": round(build_s, 3),
+               "blocks_gb": round(block_gb, 3), "mbp": n_bp / 1e6,
+               "run_s": round(run_s, 3),
+               "mbp_per_s": round(n_bp / 1e6 / run_s, 3),
+               "on_card_rerun_batches": reruns["batches"],
+               "on_card_rerun_units": reruns["units"],
+               "timed_window_launches": launches,
+               "max_memory_allocated_gb": round(
+                   torch.cuda.max_memory_allocated() / 1e9, 3), **split}
+    del decider, pipe, blocks
+    torch.cuda.empty_cache()
+    log("4d panhuman scale k=31, sharded 2x4", t0, **{
+        n: json.dumps(v) for n, v in numbers.items()})
+    return numbers
 
 
 # ---------------------------------------------------------------------------
@@ -1344,16 +1600,17 @@ def main() -> int:
     k5 = phase10_k5(rng)
     launches3 = phase3(rng)
     p11 = phase11_switch_cli(rng)
+    p14 = phase14_mesh_cli(rng)
     p4 = panhuman(rng, K_, "4", windows=(
         ("4a", {"DEACON_TPU_TILES": K4_TILES_ENV}, "K4"),
         ("4b", {"DEACON_PALLAS": "1"}, "K5"),
-        ("4c", {}, "K1")))
+        ("4c", {}, "K1")), sharded=True)
     k3 = phase5_k3(rng)
     launches6 = phase6_wide_cli(rng)
     p7 = panhuman(rng, K_WIDE, "7", windows=(
         ("7b", {"DEACON_PALLAS": "1"}, "K5"),))
     phase8_index_scale(rng)
-    k1, k2 = p2["k1"], p4["k2"]
+    k1, k2, k2s = p2["k1"], p4["k2"], p4["k2_sharded"]
     kernels = [
         {"name": "K1 select_compact", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/extract.cu",
@@ -1396,19 +1653,36 @@ def main() -> int:
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": None,
          "shapes": "sum over the three default tiles at k=31, w=15"},
+        {"name": "K2 radix_probe, sharded form", "route": "cuda",
+         "source": "deacon_tpu_torch/csrc/radix_probe.cu",
+         "replaces": "deacon_tpu/ops/radix_probe.py:973",
+         "launches": p4["windows"]["4d"]["timed_window_launches"]["K2"],
+         "max_abs_err": max(k2s["S4"]["max_abs_err"],
+                            k2s["S3"]["max_abs_err"]),
+         "ms": k2s["S4"]["ms"], "plain_ms": k2s["S4"]["plain_ms"],
+         "bound_ms": k2s["S4"]["bound_ms"], "bound_by": k2s["S4"]["bound_by"],
+         "library_ms": None,
+         "shapes": "S=4 row ranges (the 4 launches together), panhuman "
+                   "table, one (256, 8192) batch stream; S=3 beside it",
+         "S3": {n: k2s["S3"][n] for n in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "max_abs_err")},
+         "unsharded_ms": k2s["unsharded_ms"]},
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the main path was never launched")
+    launches14 = {n: v for n, v in p14.items() if n.endswith("launches")}
     print(f"[total] {time.perf_counter() - t_all:.3f} s "
           f"phase3_launches={json.dumps(launches3)} "
           f"phase6_launches={json.dumps(launches6)} "
           f"phase11_launches={json.dumps(p11['filter'])} "
+          f"phase14_launches={json.dumps(launches14)} "
           f"window_7b_launches="
           f"{json.dumps(p7['windows']['7b']['timed_window_launches'])}",
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print("kernels: K1 select_compact, K2 radix_probe, K3 values_select, "
+    print("kernels: K1 select_compact, K2 radix_probe (whole table, and "
+          "its sharded form as a sixth entry), K3 values_select, "
           "K4 select_csum, K5 values_argmin", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,7 +1,7 @@
 """Command-line interface of the port: ``index build``, ``index info`` and
 ``filter``, with the flags of the JAX package's (ref: src/main.rs:9-234)
 and ``--device cuda|cpu`` (default cuda) for ``index build`` and
-``filter``."""
+``filter``, and ``--mesh DATAxSHARD`` for ``filter``."""
 
 from __future__ import annotations
 
@@ -110,6 +110,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="suppress progress reporting")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (default cuda; never falls back)")
+    p.add_argument("--mesh", default=None, metavar="DATAxSHARD",
+                   help="device mesh, e.g. 2x4: read batches data-parallel "
+                        "over DATA rows, the index range-sharded over SHARD "
+                        "devices; needs DATA*SHARD distinct cards on cuda, "
+                        "repeats the CPU on cpu")
     return parser
 
 
@@ -144,6 +149,7 @@ def main(argv: list[str] | None = None) -> int:
             debug=args.debug,
             quiet=args.quiet,
             device=args.device,
+            mesh=args.mesh,
         ).execute()
     except BrokenPipeError:
         return 0

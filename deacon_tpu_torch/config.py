@@ -38,6 +38,10 @@ class FilterConfig:
     #: "cuda" (the default) or "cpu"; see device.resolve_device
     device: str = "cuda"
     batch_size: int = FILTER_BATCH
+    #: device mesh "DATAxSHARD" (e.g. "2x4"): read batches data-parallel
+    #: over DATA rows, the index's radix table cut over SHARD devices
+    #: (filter.engine.filter_mesh)
+    mesh: str | None = None
 
     def execute(self) -> None:
         from .filter.engine import run

@@ -15,6 +15,7 @@ import time
 from collections import deque
 
 import numpy as np
+import torch
 
 from ..config import FilterConfig
 from ..constants import TOOL_NAME, VERSION
@@ -23,6 +24,7 @@ from ..io.fastx import FastxReader, Record, read_batch
 from ..io.writers import FastxWriter, format_record, get_writer
 from ..ops import host_extract
 from ..ops.engine import DevicePipeline
+from ..parallel.sharded import ShardedPipeline, make_mesh, parse_mesh_spec
 from .backend import LocalBackend
 from .progress import FilterStats, Spinner
 from .summary import build_summary, write_summary
@@ -106,7 +108,8 @@ def _decisions_from_counts(hits, totals, cfg: FilterConfig):
 class DeviceDecider:
     """Fused on-device extract+probe+count (ops/engine.DevicePipeline).
     Every unit is decided on the device, including units wider than a
-    tile and rows over their minimizer budget."""
+    tile and rows over their minimizer budget: there is no fallback to
+    the host."""
 
     def __init__(self, index_hashes, k: int, w: int, device):
         self.pipe = DevicePipeline(index_hashes, k, w, device=device)
@@ -121,15 +124,48 @@ class DeviceDecider:
         return lambda: _decisions_from_counts(*resolve(), cfg)
 
 
+class ShardedDecider(DeviceDecider):
+    """DeviceDecider over a mesh (parallel/sharded.ShardedPipeline): read
+    batches data-parallel over the mesh's rows, the radix table cut into
+    blocks of bucket rows over its shards, per-shard hits summed. Like
+    DeviceDecider it has no host fallback and no regrow: a unit wider
+    than a tile gets a batch of its own and rows over their budget rerun
+    on the card."""
+
+    def __init__(self, index_hashes, k: int, w: int, mesh):
+        self.pipe = ShardedPipeline(index_hashes, k, w, mesh)
+        self.resolve_depth = ShardedPipeline.RESOLVE_DEPTH
+
+
+def filter_mesh(mesh_spec: str, device: str):
+    """The mesh of ``--mesh DATAxSHARD``: distinct cards on cuda (raises
+    "need N devices, have M" when there are too few), the CPU repeated on
+    cpu. The multi-host specs are not ported."""
+    if mesh_spec in ("pod", "pod-data", "pod-2d"):
+        raise ValueError(f"--mesh {mesh_spec} (multi-host) is not ported yet")
+    n_data, n_shard = parse_mesh_spec(mesh_spec)
+    if torch.device(device).type == "cpu":
+        return make_mesh(n_data, n_shard, ["cpu"] * (n_data * n_shard))
+    return make_mesh(n_data, n_shard)
+
+
 def make_decider(index, backend, k: int, w: int, cfg: FilterConfig):
-    """The device pipeline on cfg.device; the host decider for --debug
-    (its per-record k-mer dump needs host extraction)."""
+    """The device pipeline on cfg.device, over cfg.mesh when it is set;
+    the host decider for --debug (its per-record k-mer dump needs host
+    extraction; a mesh is still checked)."""
+    mesh = filter_mesh(cfg.mesh, cfg.device) if cfg.mesh else None
     if cfg.debug:
         return HostDecider(backend, k, w)
+    if mesh is not None:
+        return ShardedDecider(index.hashes, k, w, mesh)
     return DeviceDecider(index.hashes, k, w, cfg.device)
 
 
 def _engine_desc(decider) -> str:
+    if isinstance(decider, ShardedDecider):
+        shape = decider.pipe.mesh.shape
+        return (f"sharded device pipeline (mesh data={shape['data']} x "
+                f"shard={shape['shard']})")
     if isinstance(decider, DeviceDecider):
         return f"device pipeline ({decider.pipe.device})"
     return "host batch engine (NumPy oracle extraction)"

@@ -128,7 +128,7 @@ def library() -> ctypes.CDLL:
         ]
         lib.dx_select_compact.restype = i32
         lib.dx_radix_probe.argtypes = [
-            vp, vp, vp, i64, vp, i32, vp, i32, vp, vp,
+            vp, vp, vp, i64, vp, i64, i64, i32, vp, i32, vp, vp,
         ]
         lib.dx_radix_probe.restype = i32
         lib.dx_values_select.argtypes = [

@@ -26,8 +26,11 @@ One engine step per batch of rows of a tile (L, R), all on the device:
      values are gathered at wp and compacted as after K3;
 2. XXH3-64 of every slot's value, 8 or 16 bytes (ops/hash.py);
 3. the probe stream sorted by (hash, read) and K2
-   (ops/kernels.probe_hits, csrc/radix_probe.cu): distinct member hashes
-   per read unit;
+   (ops/kernels.probe_hits, csrc/radix_probe.cu) against the step's
+   tables: the whole radix table (DevicePipeline), or the shards of one,
+   each probed on its device and the hits summed
+   (parallel/sharded.ShardedPipeline): distinct member hashes per read
+   unit;
 4. per-unit totals from the slot grid (ops/radix_probe.totals_grid);
 5. one fused int32 output: hits, totals, then ``used`` (the largest row
    total, for the host's budget check).
@@ -74,7 +77,7 @@ from .pack import (
 )
 from .radix_probe import (
     RadixTable,
-    build_radix_table,
+    build_radix_shards,
     radix_probe_hits,
     totals_grid,
 )
@@ -235,12 +238,14 @@ def hash_planes(planes: list[torch.Tensor]) -> torch.Tensor:
     return xxh3_64_u128(planes[0], planes[1])
 
 
-def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, table, *,
+def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, tables, *,
                 k: int, w: int, budget: int, num_segments: int,
                 dedup_positions: bool, route: str):
     """One batch -> (fused (2 * num_segments + 1,) int32: hits per unit,
     totals per unit, then the largest row total; (R,) int32 row totals).
-    Units with a row total above ``budget`` have truncated counts."""
+    ``tables`` is what the probe reads: [a RadixTable], or the shards of
+    one (radix_probe_hits). Units with a row total above ``budget`` have
+    truncated counts."""
     R, Lp = pc.shape
     L = Lp * 4
     pos_c, planes, rt = select_slots(pc, pv, mlen, allow_short, k=k, w=w,
@@ -250,7 +255,7 @@ def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, table, *,
     hashes = hash_planes(planes)
     del planes
     hits = radix_probe_hits(
-        table, hashes, valid2d, rid[:, None].expand(R, budget),
+        tables, hashes, valid2d, rid[:, None].expand(R, budget),
         num_segments=num_segments,
     )
     l = k + w - 1
@@ -345,7 +350,18 @@ class DevicePipeline:
 
     def __init__(self, index_hashes, k: int, w: int, tiles=None,
                  device=None):
-        self.device = resolve_device(device)
+        self._init_engine(k, w, tiles, resolve_device(device))
+        if isinstance(index_hashes, RadixTable):
+            if index_hashes.slots.device != self.device:
+                raise ValueError("the radix table is not on this device")
+            self.table = index_hashes  # shared, not copied
+        else:
+            self.table = build_radix_shards(index_hashes, 1, [self.device])[0]
+
+    def _init_engine(self, k: int, w: int, tiles, device: torch.device):
+        """Everything but the table: k, w, tile classes and routes, the
+        fetch group and the rerun counters."""
+        self.device = device
         if not 1 <= k <= MAX_K_FILTER:
             raise ValueError(
                 "Indexing the bitmask of invalid characters requires "
@@ -357,18 +373,6 @@ class DevicePipeline:
         self.tiles, self.routes = tile_classes(
             tiles or env_tiles() or self.DEFAULT_TILES, k=self.k, l=self.l,
             rows=4096)
-        if isinstance(index_hashes, RadixTable):
-            if index_hashes.slots.device != self.device:
-                raise ValueError("the radix table is not on this device")
-            self.table = index_hashes  # shared, not copied
-        else:
-            if isinstance(index_hashes, torch.Tensor):
-                keys = index_hashes.to(self.device, torch.int64)
-            else:
-                arr = np.ascontiguousarray(index_hashes, dtype=np.uint64)
-                keys = torch.from_numpy(arr.view(np.int64)).to(self.device)
-            self.table = build_radix_table(keys)
-            del keys
         self.L_max = self.tiles[-1][0]
         self._stride = self.L_max - self.l + 1
         self.fetch_group = FetchGroup()
@@ -470,12 +474,18 @@ class DevicePipeline:
     def _launch_batch(self, rows: list[_Row], L: int, n_units: int,
                       budget: int):
         """Pack and launch one batch; returns (fused output, row totals)."""
+        return self._step(rows, L, n_units, budget, self.device,
+                          [self.table])
+
+    def _step(self, rows: list[_Row], L: int, n_units: int, budget: int,
+              device: torch.device, tables):
+        """engine_step of one batch on ``device`` against ``tables``."""
         pc, pv, mlen, allow_short, rid, mate, cstart = upload(
             list(pack_rows_packed(rows, len(rows), L, self.k, self.l)),
-            self.device,
+            device,
         )
         return engine_step(
-            pc, pv, mlen, allow_short, rid, mate, cstart, self.table,
+            pc, pv, mlen, allow_short, rid, mate, cstart, tables,
             k=self.k, w=self.w, budget=budget, num_segments=n_units,
             # only the largest tile class ever holds chunked long reads
             dedup_positions=L >= self.L_max, route=self.routes[L],

@@ -3,7 +3,8 @@
 * K1 ``select_compact`` (csrc/extract.cu) replaces the TPU kernel
   ``select_compact_packed`` (deacon_tpu/ops/pallas_kernels.py).
 * K2 ``probe_hits`` (csrc/radix_probe.cu) replaces the TPU kernel
-  ``radix_probe_hits`` (deacon_tpu/ops/radix_probe.py).
+  ``radix_probe_hits`` (deacon_tpu/ops/radix_probe.py), whole-table and
+  sharded (a block of bucket rows, ``row_lo``).
 * K3 ``values_select`` (csrc/values_select.cu) replaces the TPU kernel
   ``values_select_fused`` (deacon_tpu/ops/pallas_kernels.py).
 * K4 ``select_csum`` (csrc/select_csum.cu) replaces the TPU kernel
@@ -12,8 +13,9 @@
   ``values_argmin_fused`` (deacon_tpu/ops/pallas_kernels.py).
 
 A wrapper runs its plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel on the current stream (no synchronisation)
-or raises; it never falls back. Each wrapper counts its kernel launches in
+tensors it launches its kernel on the current stream of the tensors'
+device, made the current device for the launch (no synchronisation), or
+raises; it never falls back. Each wrapper counts its kernel launches in
 its ``launches`` attribute.
 """
 
@@ -276,10 +278,11 @@ def select_compact(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
     pos = torch.empty((R, Br), dtype=torch.int32, device=dev)
     val = torch.empty((R, Br), dtype=torch.int64, device=dev)
     tot = torch.empty((R,), dtype=torch.int32, device=dev)
-    err = lib.dx_select_compact(
-        _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(pos),
-        _ptr(val), _ptr(tot), R, L, k, w, Br, _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        err = lib.dx_select_compact(
+            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(pos),
+            _ptr(val), _ptr(tot), R, L, k, w, Br, _stream(dev),
+        )
     _build.check(err, "select_compact launch")
     select_compact.launches += 1
     return pos, val, tot
@@ -320,10 +323,11 @@ def values_select(pc, pv, mlen, allow_short, *, k: int, w: int):
     lo = torch.empty((R, L), dtype=torch.int64, device=dev)
     hi = torch.empty((R, L), dtype=torch.int64, device=dev)
     wpf = torch.empty((R, L), dtype=torch.int32, device=dev)
-    err = lib.dx_values_select(
-        _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(lo),
-        _ptr(hi), _ptr(wpf), R, L, k, w, _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        err = lib.dx_values_select(
+            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(lo),
+            _ptr(hi), _ptr(wpf), R, L, k, w, _stream(dev),
+        )
     _build.check(err, "values_select launch")
     values_select.launches += 1
     return lo, hi, wpf
@@ -360,10 +364,11 @@ def select_csum(pc, pv, mlen, allow_short, *, k: int, w: int):
     lib = _build.library()
     plane = torch.empty((R, L), dtype=torch.int32, device=dev)
     tot = torch.empty((R,), dtype=torch.int32, device=dev)
-    err = lib.dx_select_csum(
-        _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(plane),
-        _ptr(tot), R, L, k, w, _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        err = lib.dx_select_csum(
+            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(plane),
+            _ptr(tot), R, L, k, w, _stream(dev),
+        )
     _build.check(err, "select_csum launch")
     select_csum.launches += 1
     return plane, tot
@@ -401,11 +406,12 @@ def values_argmin(pc, mlen, *, k: int, w: int):
     planes = [torch.empty((R, L), dtype=torch.int64, device=dev)
               for _ in range(1 if k <= 32 else 2)]
     wp = torch.empty((R, L), dtype=torch.int32, device=dev)
-    err = lib.dx_values_argmin(
-        _ptr(pc), _ptr(mlen), _ptr(planes[0]),
-        _ptr(planes[1]) if k > 32 else None, _ptr(wp), R, L, k, w,
-        _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        err = lib.dx_values_argmin(
+            _ptr(pc), _ptr(mlen), _ptr(planes[0]),
+            _ptr(planes[1]) if k > 32 else None, _ptr(wp), R, L, k, w,
+            _stream(dev),
+        )
     _build.check(err, "values_argmin launch")
     values_argmin.launches += 1
     return planes, wp
@@ -429,24 +435,30 @@ def _member_plain(slots: torch.Tensor, bits: int, keys: torch.Tensor):
 
 
 def probe_hits_plain(slots, spill, keys, srid, first, *, p: int, sp: int,
-                     num_segments: int):
+                     num_segments: int, row_lo: int = 0):
     """Plain PyTorch version of K2.
 
-    slots (2**p, 128) int64 main table, spill (2**sp, 128) int64 or None
-    when sp == 0; keys (q,) int64, srid (q,) int32 (read id, -1 for a
-    filler), first (q,) int32: the sorted stream. Returns (num_segments,)
-    int32 distinct member keys per read. Bucket rows are gathered in
+    slots (rows, 128) int64: bucket rows [row_lo, row_lo + rows) of a
+    2**p-row main table (the whole table: row_lo 0, rows 2**p); spill
+    (2**sp, 128) int64, the whole spill table, or None when sp == 0; keys
+    (q,) int64, srid (q,) int32 (read id, -1 for a filler), first (q,)
+    int32: the sorted stream. Returns (num_segments,) int32 distinct
+    member keys per read among the queries whose bucket lies in the block
+    (a spill match counts only for those), so the hits of the blocks of
+    one table sum to the whole table's. Bucket rows are gathered in
     chunks of at most PLAIN_PROBE_CHUNK queries."""
     hits = torch.zeros(num_segments, dtype=torch.int64, device=keys.device)
-    q = keys.shape[0]
+    q, rows = keys.shape[0], slots.shape[0]
     for a in range(0, q, PLAIN_PROBE_CHUNK):
         ck = keys[a:a + PLAIN_PROBE_CHUNK]
         cs = srid[a:a + PLAIN_PROBE_CHUNK]
         live = (cs >= 0) & (first[a:a + PLAIN_PROBE_CHUNK] != 0)
-        member = _member_plain(slots, p, ck)
+        b = lsr(ck, 64 - p) - row_lo
+        own = (b >= 0) & (b < rows)
+        member = (slots[b.clamp(0, rows - 1)] == ck[:, None]).any(dim=1)
         if sp:
             member |= _member_plain(spill, sp, ck)
-        sel = live & member
+        sel = live & own & member
         hits.index_add_(
             0, cs[sel].to(torch.int64),
             torch.ones(int(sel.sum()), dtype=torch.int64, device=keys.device),
@@ -455,11 +467,13 @@ def probe_hits_plain(slots, spill, keys, srid, first, *, p: int, sp: int,
 
 
 def probe_hits(slots, spill, keys, srid, first, *, p: int, sp: int,
-               num_segments: int):
-    """K2 wrapper: same arguments and result as probe_hits_plain."""
+               num_segments: int, row_lo: int = 0):
+    """K2 wrapper: same arguments and result as probe_hits_plain. One
+    launch per call, so a sharded probe launches once per shard."""
     q = keys.shape[0]
     dev = keys.device
-    _require(slots, "table", torch.int64, (1 << p, 128), dev)
+    rows = slots.shape[0]
+    _require(slots, "table", torch.int64, (rows, 128), dev)
     if sp:
         _require(spill, "spill table", torch.int64, (1 << sp, 128), dev)
     _require(keys, "keys", torch.int64, (q,), dev)
@@ -467,19 +481,26 @@ def probe_hits(slots, spill, keys, srid, first, *, p: int, sp: int,
     _require(first, "first", torch.int32, (q,), dev)
     if not 1 <= p <= 63:
         raise ValueError(f"probe_hits: bad bucket bits p={p}")
+    if not (rows >= 1 and row_lo >= 0 and row_lo + rows <= 1 << p):
+        raise ValueError(
+            f"probe_hits: rows [{row_lo}, {row_lo + rows}) are not a block "
+            f"of the 2**{p}-row table"
+        )
     if dev.type == "cpu":
         return probe_hits_plain(slots, spill, keys, srid, first, p=p, sp=sp,
-                                num_segments=num_segments)
+                                num_segments=num_segments, row_lo=row_lo)
     if dev.type != "cuda":
         raise ValueError(f"probe_hits: unsupported device {dev}")
     from . import _build
 
     lib = _build.library()
     hits = torch.zeros(num_segments, dtype=torch.int32, device=dev)
-    err = lib.dx_radix_probe(
-        _ptr(keys), _ptr(srid), _ptr(first), q, _ptr(slots), p,
-        _ptr(spill) if sp else None, sp, _ptr(hits), _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        err = lib.dx_radix_probe(
+            _ptr(keys), _ptr(srid), _ptr(first), q, _ptr(slots), row_lo,
+            rows, p, _ptr(spill) if sp else None, sp, _ptr(hits),
+            _stream(dev),
+        )
     _build.check(err, "radix_probe launch")
     probe_hits.launches += 1
     return hits

@@ -11,6 +11,11 @@ slots instead of its int8 byte planes (those were a TPU matmul trick).
 
 Tables are built with torch ops on the device of the keys, so a
 panhuman-scale key set (~4.1e8 keys) never passes through host NumPy.
+A sharded table (build_radix_shards) is cut into blocks of contiguous
+bucket rows, each built on its own device from the keys of its rows (a
+contiguous slice of the sorted keys), with the same p and the same
+replicated spill table as the whole table; the block hits of a query
+stream sum to the whole table's (kernels.probe_hits with ``row_lo``).
 
 Reference parity: FxHashSet membership (ref: src/index.rs:96-107) and
 distinct-hit counting (ref: src/filter_common.rs:129-155).
@@ -28,7 +33,7 @@ from .kernels import probe_hits
 
 #: slots per bucket (main and spill tables)
 K_SLOTS = 128
-#: largest main table this slice builds: 2**25 buckets = 32 GiB of slots
+#: most bucket rows one device holds: 2**25 rows = 32 GiB of slots
 MAX_LOG2_BUCKETS = 25
 MAX_SPILL_BITS = 9
 _I64_MIN = -(1 << 63)
@@ -36,14 +41,18 @@ _I64_MIN = -(1 << 63)
 
 @dataclass
 class RadixTable:
-    """slots: (2**p, 128) int64, slot j of bucket b; spill: (2**sp, 128)
-    int64 or None (sp == 0). n_keys counts distinct keys stored."""
+    """A 2**p-row radix table, or one shard of it: slots (rows, 128)
+    int64, slot j of bucket row_lo + i in row i (the whole table: rows
+    2**p, row_lo 0); spill: the whole (2**sp, 128) int64 spill table or
+    None (sp == 0), replicated on every shard. n_keys counts the distinct
+    keys of the shard's bucket rows (stored here or in the spill)."""
 
     slots: torch.Tensor
     p: int
     n_keys: int
     spill: torch.Tensor | None = None
     sp: int = 0
+    row_lo: int = 0
 
     @property
     def nbytes(self) -> int:
@@ -67,18 +76,22 @@ def _bucket_of(keys: torch.Tensor, bits: int) -> torch.Tensor:
     return lsr(keys, 64 - bits)
 
 
-def _fill_slots(keys: torch.Tensor, bits: int):
-    """(2**bits, 128) slot table of unsigned-ascending keys, plus the keys
-    whose rank in their bucket is >= 128 (in the same order)."""
-    nb = 1 << bits
+def _fill_slots(keys: torch.Tensor, bits: int, row_lo: int = 0,
+                rows: int | None = None):
+    """(rows, 128) slot block of bucket rows [row_lo, row_lo + rows)
+    (default: all 2**bits) from the unsigned-ascending keys of those rows,
+    plus the keys whose rank in their bucket is >= 128 (in the same
+    order)."""
+    nb = (1 << bits) if rows is None else rows
     dev = keys.device
-    b = _bucket_of(keys, bits)
+    b = _bucket_of(keys, bits) - row_lo
     starts = torch.searchsorted(b, torch.arange(nb, device=dev))
     j = torch.arange(keys.numel(), device=dev) - starts[b]
     del starts
     keep = j < K_SLOTS
     overflow = keys[~keep]
-    empty = (torch.arange(nb, dtype=torch.int64, device=dev) ^ 1) << (64 - bits)
+    empty = ((torch.arange(nb, dtype=torch.int64, device=dev) + row_lo)
+             ^ 1) << (64 - bits)
     slots = empty[:, None].repeat(1, K_SLOTS)
     slots.view(-1)[(b * K_SLOTS + j)[keep]] = keys[keep]
     return slots, overflow
@@ -111,28 +124,93 @@ def sorted_unique_keys(keys: torch.Tensor) -> torch.Tensor:
     return s ^ _I64_MIN
 
 
-def build_radix_table(keys: torch.Tensor) -> RadixTable:
-    """Table of the distinct keys of an int64 tensor (u64 bit patterns),
-    built on the keys' device. Raises NotImplementedError when the table
-    would need more than 2**MAX_LOG2_BUCKETS buckets."""
-    arr = sorted_unique_keys(keys)
-    n = arr.numel()
+def _is_sorted_unique(keys: torch.Tensor, chunk: int = 1 << 24) -> bool:
+    """Whether int64 keys are strictly ascending as u64 (checked in chunks,
+    so no temporary is as large as the keys)."""
+    for a in range(0, keys.numel() - 1, chunk):
+        f = keys[a:a + chunk + 1] ^ _I64_MIN
+        if not bool((f[1:] > f[:-1]).all()):
+            return False
+    return True
+
+
+def _row_start(keys: torch.Tensor, bits: int, row: int) -> int:
+    """Index of the first of the unsigned-ascending keys whose bucket is
+    at least ``row`` (a binary search of scalar reads)."""
+    if row <= 0:
+        return 0
+    lo, hi = 0, keys.numel()
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if (int(keys[mid]) & ((1 << 64) - 1)) >> (64 - bits) < row:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def build_radix_shards(keys, n_shard: int, devices) -> list[RadixTable]:
+    """The radix table of the distinct keys of an int64 tensor or a uint64
+    array, cut into n_shard blocks of bucket rows: shard j holds rows
+    [j * 2**p // n_shard, (j + 1) * 2**p // n_shard) on devices[j], built
+    there from the keys of those rows. p, the spill rule and the retry at
+    p + 1 are build_radix_table's, so the blocks' slots concatenated are
+    its slots and every shard holds its spill table. Keys that are already
+    sorted and distinct (an index file's) are used in place, others are
+    sorted on devices[0]; no device holds more than its block, the spill
+    and its slice of the keys besides those keys. Raises
+    NotImplementedError when a shard would hold more than
+    2**MAX_LOG2_BUCKETS rows."""
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != n_shard or n_shard < 1:
+        raise ValueError(f"need one device for each of {n_shard} shards, "
+                         f"got {len(devices)}")
+    if isinstance(keys, np.ndarray):
+        keys = torch.from_numpy(
+            np.ascontiguousarray(keys, dtype=np.uint64).view(np.int64))
+    keys = keys.reshape(-1).to(torch.int64)
+    if not _is_sorted_unique(keys):
+        keys = sorted_unique_keys(keys.to(devices[0]))
+    n = keys.numel()
     p = choose_p(n)
+    if n_shard > 1 << p:
+        raise ValueError(f"{n_shard} shards: the table of {n} keys has only "
+                         f"2**{p} bucket rows")
     while True:
-        if p > MAX_LOG2_BUCKETS:
+        if -(-(1 << p) // n_shard) > 1 << MAX_LOG2_BUCKETS:
+            hint = (" on one card: shard the table across cards with "
+                    "--mesh 1xN" if n_shard == 1 else " in a shard: use "
+                    "more shards")
             raise NotImplementedError(
                 f"{n} index keys need more than 2**{MAX_LOG2_BUCKETS} radix "
-                "buckets: sharding the index across cards is a later slice "
-                "of the port"
+                f"buckets{hint}"
             )
-        slots, spill_keys = _fill_slots(arr, p)
+        shards, over = [], []
+        for j, dev in enumerate(devices):
+            r0, r1 = j * (1 << p) // n_shard, (j + 1) * (1 << p) // n_shard
+            part = keys[_row_start(keys, p, r0):_row_start(keys, p, r1)]
+            slots, rest = _fill_slots(part.to(dev), p, r0, r1 - r0)
+            shards.append(RadixTable(slots, p, part.numel(), row_lo=r0))
+            over.append(rest.to(devices[0]))
+        spill_keys = torch.cat(over)
         if spill_keys.numel() == 0:
-            return RadixTable(slots, p, n)
+            return shards
         packed = _pack_spill(spill_keys)
         if packed is not None:
-            return RadixTable(slots, p, n, packed[0], packed[1])
-        del slots
+            for t in shards:
+                t.spill = packed[0].to(t.slots.device)
+                t.sp = packed[1]
+            return shards
+        del shards, over
         p += 1  # extreme skew (not for real hashes): split finer
+
+
+def build_radix_table(keys: torch.Tensor) -> RadixTable:
+    """Table of the distinct keys of an int64 tensor (u64 bit patterns),
+    built on the keys' device (build_radix_shards with one shard). Raises
+    NotImplementedError when the table would need more than
+    2**MAX_LOG2_BUCKETS buckets."""
+    return build_radix_shards(keys, 1, [keys.device])[0]
 
 
 def radix_table_from_jax(planes: np.ndarray, p: int, k: int,
@@ -193,16 +271,26 @@ def prep_sorted(hashes: torch.Tensor, slot_valid: torch.Tensor,
     return key.contiguous(), srid.contiguous(), first
 
 
-def radix_probe_hits(table: RadixTable, hashes, slot_valid, rid_slots, *,
+def radix_probe_hits(tables, hashes, slot_valid, rid_slots, *,
                      num_segments: int) -> torch.Tensor:
     """(num_segments,) int32 distinct member hashes per read unit: the
-    sorted stream of prep_sorted through K2. Exact on any batch in one
-    pass (no window sizing, no overflow, no rerun)."""
+    sorted stream of prep_sorted through K2 once for each of ``tables``
+    ([the whole table], or the shards of one, each on its device: the
+    stream goes there and its hits come back to the stream's device,
+    where they are summed). Exact on any batch in one pass (no window
+    sizing, no overflow, no rerun)."""
     key, srid, first = prep_sorted(hashes, slot_valid, rid_slots)
-    return probe_hits(
-        table.slots, table.spill, key, srid, first, p=table.p, sp=table.sp,
-        num_segments=num_segments,
-    )
+    home = key.device
+    total = None
+    for t in tables:
+        dev = t.slots.device
+        hits = probe_hits(
+            t.slots, t.spill, key.to(dev, non_blocking=True),
+            srid.to(dev, non_blocking=True), first.to(dev, non_blocking=True),
+            p=t.p, sp=t.sp, num_segments=num_segments, row_lo=t.row_lo,
+        ).to(home, non_blocking=True)
+        total = hits if total is None else total + hits
+    return total
 
 
 def totals_grid(slot_pos, slot_valid, rid, mate, cstart, *,

@@ -1,6 +1,8 @@
-"""K1-K5 on the card against their plain PyTorch versions, exact, and the
-pipeline and index build on the card against the CPU, under the engine's
-switches too.
+"""K1-K5 on the card against their plain PyTorch versions, exact (K2 in
+its sharded form too, its blocks' hits summing to the whole table's), and
+the pipeline, the sharded pipeline and the index build on the card
+against the CPU or the unsharded pipeline, under the engine's switches
+too.
 
 Marked ``cuda``: each test asks a fixture whether a card is present and
 skips without one (the decision is never taken at import or collection,
@@ -129,6 +131,73 @@ def test_k2_kernel_matches_plain(cuda, spill):
     want = tk.probe_hits_plain(t.slots, t.spill, key, srid, first, **kw)
     assert torch.equal(got, want)
     assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("n_shard", [3, 4])
+def test_k2_sharded_kernel_matches_plain_and_whole_table(cuda, n_shard):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    keys = torch.randint(-(1 << 63), (1 << 63) - 1, (1 << 20,), device=cuda,
+                         dtype=torch.int64, generator=g)
+    top = keys[5] & ~((1 << 36) - 1)
+    keys = torch.cat([keys, top | torch.randint(
+        0, 1 << 36, (180,), device=cuda, generator=g)])
+    whole = trp.build_radix_table(keys)
+    shards = trp.build_radix_shards(keys, n_shard, [cuda] * n_shard)
+    assert whole.sp > 0 and all(t.sp == whole.sp for t in shards)
+    assert torch.equal(torch.cat([t.slots for t in shards]), whole.slots)
+    R, Br = 512, 384
+    pick = torch.randint(0, keys.numel(), (R * Br,), device=cuda, generator=g)
+    other = torch.randint(-(1 << 63), (1 << 63) - 1, (R * Br,), device=cuda,
+                          dtype=torch.int64, generator=g)
+    coin = torch.rand(R * Br, device=cuda, generator=g) < 0.5
+    hashes = torch.where(coin, keys[pick], other).reshape(R, Br)
+    valid = torch.rand((R, Br), device=cuda, generator=g) < 0.67
+    rid = torch.arange(R, device=cuda, dtype=torch.int32) // 4
+    key, srid, first = trp.prep_sorted(hashes, valid,
+                                       rid[:, None].expand(R, Br))
+    kw = dict(p=whole.p, sp=whole.sp, num_segments=R // 4)
+    tk.probe_hits.launches = 0
+    per = []
+    for t in shards:
+        got = tk.probe_hits(t.slots, t.spill, key, srid, first,
+                            row_lo=t.row_lo, **kw)
+        want = tk.probe_hits_plain(t.slots, t.spill, key, srid, first,
+                                   row_lo=t.row_lo, **kw)
+        assert torch.equal(got, want)
+        per.append(got)
+    assert tk.probe_hits.launches == n_shard
+    whole_hits = tk.probe_hits(whole.slots, whole.spill, key, srid, first,
+                               **kw)
+    assert torch.equal(sum(per), whole_hits) and int(whole_hits.sum()) > 0
+
+
+def test_sharded_pipeline_on_card_matches_device_pipeline(cuda):
+    from deacon_tpu_torch.ops.minimizers_np import compute_minimizer_hashes
+    from deacon_tpu_torch.parallel.sharded import ShardedPipeline, make_mesh
+
+    rng = np.random.default_rng(6)
+    genome = rng.choice(_B, size=200_000).tobytes()
+    idx = np.unique(compute_minimizer_hashes(genome, 31, 15))
+    seqs = []
+    for _ in range(300):
+        n = int(rng.integers(31, 3000))
+        s = int(rng.integers(0, len(genome) - n))
+        seqs.append(genome[s:s + n] if rng.random() < 0.5
+                    else rng.choice(_B, size=n).tobytes())
+    seqs[7] = genome[:300] + b"A" * 700
+    pairs = list(zip(seqs[::2], seqs[1::2]))
+    tiles = ((256, 64), (1024, 32))
+    pipe = ShardedPipeline(idx, 31, 15, make_mesh(1, 4, [cuda] * 4),
+                           tiles=tiles)
+    ref = DevicePipeline(idx, 31, 15, tiles=tiles, device=cuda)
+    tk.probe_hits.launches = tk.select_compact.launches = 0
+    got = (pipe.counts_single(seqs, 0), pipe.counts_paired(pairs, 0))
+    assert tk.probe_hits.launches == 4 * tk.select_compact.launches > 0
+    want = (ref.counts_single(seqs, 0), ref.counts_paired(pairs, 0))
+    for g_, w_ in zip(got, want):
+        np.testing.assert_array_equal(g_[0], w_[0])
+        np.testing.assert_array_equal(g_[1], w_[1])
+    assert pipe.rerun_units >= 1
 
 
 def test_pipeline_on_card_matches_cpu(cuda):

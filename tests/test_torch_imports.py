@@ -24,6 +24,7 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax_and_no_jax_package():
     mods = _port_modules() + ["chip_smoke"]
     assert "deacon_tpu_torch.ops.kernels" in mods
+    assert "deacon_tpu_torch.parallel.sharded" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -424,7 +424,7 @@ def _jax_hits(jt, qk, valid, rid_rows, nseg, mode):
 def _port_hits(t, qk, valid, rid_rows, nseg):
     R, Br = qk.shape
     return trp.radix_probe_hits(
-        t, _i64(qk), torch.from_numpy(valid),
+        [t], _i64(qk), torch.from_numpy(valid),
         torch.from_numpy(rid_rows)[:, None].expand(R, Br),
         num_segments=nseg,
     ).numpy()
