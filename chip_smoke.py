@@ -9,7 +9,9 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
 2. kernel parity at main-path shapes: K1 (select_compact) at the three
    default tiles and K2 (probe_hits) on a production-sized sorted stream
    with a forced spill table, each against its plain PyTorch version
-   (exact: the outputs are integers), with times and bounds;
+   (exact: the outputs are integers), with times and bounds; K1's time
+   is its device time (CUDA-graph replay), printed beside the time
+   around wrapper calls and its ratio to the bound;
 3. CLI end to end: ``deacon_tpu_torch.cli.main(["index", "build", ...])``
    on the card writes a seeded 2 Mbp genome's index, byte-identical to
    the index written from the host NumPy oracle; ``filter`` against it,
@@ -77,6 +79,11 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
 Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 14, 4, 4a, 4b, 4c, 13,
 4d, 5, 6, 7, 7b, 8. Each switch is set in os.environ only around its
 phase.
+
+``python3 chip_smoke.py --k1`` runs phases 0 and 1 and then K1's part of
+phase 2 alone, printing its numbers as the last line and no result: the
+quickest check and timing of K1. Copied into a checkout of an earlier
+commit and run there, it times that commit's K1 by the same measures.
 
 Every temporary file lives in a tempfile directory outside the checkout
 and is deleted; nothing is left running. Exits non-zero, printing no
@@ -164,6 +171,32 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
+    """Mean device ms per call: reps calls captured in one CUDA graph,
+    replayed iters times between CUDA events, so that the host's time per
+    call (the wrapper's checks and allocations) is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (reps * iters)
+
+
 @contextlib.contextmanager
 def switches(**env):
     """The engine's switches set to env (the others unset) for a phase,
@@ -182,6 +215,12 @@ def switches(**env):
 #: the selection kernels by name (each tile class runs one of them)
 SELECT = {"K1": K.select_compact, "K3": K.values_select,
           "K4": K.select_csum, "K5": K.values_argmin}
+
+
+#: the device-side names of the kernels, as torch.profiler lists them
+OWN_KERNELS = {"K1": "select_compact_kernel", "K2": "radix_probe_kernel",
+               "K3": "values_select_kernel", "K4": "select_csum_kernel",
+               "K5": "values_argmin_kernel"}
 
 
 def reset_launches() -> None:
@@ -257,12 +296,14 @@ def tile_rows(rng, L: int, R: int, k: int = K_, w: int = W_) -> list[_Row]:
     return rows
 
 
-def phase2(rng) -> dict:
-    t0 = time.perf_counter()
+def k1_tiles(rng) -> dict:
+    """K1 at the three default tiles: exact against its plain version,
+    with its device time (CUDA-graph replay), its time around wrapper
+    calls (call_ms), its plain version's and its bound."""
     dev = torch.device("cuda")
     budget_frac = default_budget_frac(W_)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
-          "tiles": []}
+    k1 = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "max_abs_err": 0, "tiles": []}
     for L, R in DevicePipeline.DEFAULT_TILES:
         Br = v4_row_budget(L, W_, budget_frac)
         arrs = pack_rows_packed(tile_rows(rng, L, R), R, L, K_, K_ + W_ - 1)
@@ -288,7 +329,11 @@ def phase2(rng) -> dict:
         ) if bool(live.any()) else 0
         if err:
             raise AssertionError(f"K1 slots differ at tile {(L, R)}")
-        ms = time_ms(kern, 20)
+        # ms: the kernel's device time; call_ms: events around 20 wrapper
+        # calls, which counts the host's time per call where that is the
+        # longer (the earlier measure, kept for comparison)
+        ms = graph_ms(kern)
+        call_ms = time_ms(kern, 20)
         pms = time_ms(plain, 3, warm=1)
         slots = int(live.sum())
         nbytes = R * (L // 4 + L // 8 + 4 + 1 + 4) + slots * 12
@@ -296,16 +341,27 @@ def phase2(rng) -> dict:
         # window min, validity and flag, scan
         b, by = bound_ms(nbytes, ops)
         k1["ms"] += ms
+        k1["call_ms"] += call_ms
         k1["plain_ms"] += pms
         k1["bound_ms"] += b
         k1["bound_by"] = by
         k1["tiles"].append({"L": L, "R": R, "Br": Br, "ms": round(ms, 4),
+                            "call_ms": round(call_ms, 4),
                             "plain_ms": round(pms, 3), "bytes": nbytes,
                             "bytes_bound_ms": round(
                                 nbytes / HBM_BYTES_PER_S * 1e3, 5),
                             "bound_ms": round(b, 5), "bound_by": by,
+                            "ratio_to_bound": round(ms / b, 2),
                             "slots": slots,
                             "overflow_rows": int((tot > Br).sum())})
+    return k1
+
+
+def phase2(rng) -> dict:
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    budget_frac = default_budget_frac(W_)
+    k1 = k1_tiles(rng)
     # K2: production-sized stream (the (2048, 2048) tile's slot grid at
     # the real density) on a table with a forced spill
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -1098,7 +1154,8 @@ def run_decider(decider, single, pairs, ont, batch: int = 10_000):
 def where_time_goes(decider, single, pairs, ont, run_s: float) -> dict:
     """The timed window's reads once more under torch.profiler (device
     time by kernel: rows whose device type is CUDA, so no op is counted
-    twice) and once under cProfile (host time by function). The device's
+    twice; the top six, and each of the port's own kernels) and once
+    under cProfile (host time by function). The device's
     busy share is its kernel and copy time over the unprofiled window."""
     import cProfile
     import pstats
@@ -1115,6 +1172,14 @@ def where_time_goes(decider, single, pairs, ont, run_s: float) -> dict:
     device_s = sum(r[1] for r in rows) / 1e6
     top_dev = [{"name": k[:48], "ms": round(t / 1e3, 3), "n": n}
                for k, t, n in sorted(rows, key=lambda r: -r[1])[:6]]
+    # the port's own kernels, listed or not among the top six
+    own = {}
+    for key, t, n in rows:
+        for name, kernel in OWN_KERNELS.items():
+            if kernel in key:
+                e = own.setdefault(name, {"ms": 0.0, "n": 0})
+                e["ms"] = round(e["ms"] + t / 1e3, 4)
+                e["n"] += n
     host = cProfile.Profile()
     host.enable()
     run_decider(decider, single, pairs, ont)
@@ -1126,7 +1191,8 @@ def where_time_goes(decider, single, pairs, ont, run_s: float) -> dict:
                 for fn, v in sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]]
     return {"device_s": round(device_s, 4),
             "device_busy_share": round(device_s / run_s, 4),
-            "top_device": top_dev, "top_host_self": top_host}
+            "top_device": top_dev, "own_kernels": own,
+            "top_host_self": top_host}
 
 
 def switch_window(table, k: int, reads, ref, n_bp: int, label: str,
@@ -1595,6 +1661,14 @@ def main() -> int:
     secs = _build.build()
     _build.library()
     log("1 build", t0, nvcc_s=secs if secs is not None else "cached")
+    if sys.argv[1:] == ["--k1"]:
+        t0 = time.perf_counter()
+        k1 = k1_tiles(rng)
+        log("2 K1 alone", t0, k1=json.dumps(k1["tiles"]))
+        print(json.dumps({n: k1[n] for n in ("ms", "call_ms", "plain_ms",
+                                              "bound_ms", "max_abs_err")}),
+              flush=True)
+        return 0
     p2 = phase2(rng)
     k4 = phase9_k4(rng)
     k5 = phase10_k5(rng)
@@ -1619,7 +1693,9 @@ def main() -> int:
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
-         "shapes": "sum over the three default tiles"},
+         "call_ms": k1["call_ms"],
+         "shapes": "sum over the three default tiles; ms by CUDA-graph "
+                   "replay, call_ms around wrapper calls"},
         {"name": "K2 radix_probe", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/radix_probe.cu",
          "replaces": "deacon_tpu/ops/radix_probe.py:973",

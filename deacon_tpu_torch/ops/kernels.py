@@ -1,7 +1,9 @@
 """The port's CUDA kernels: wrappers, plain PyTorch versions, counters.
 
 * K1 ``select_compact`` (csrc/extract.cu) replaces the TPU kernel
-  ``select_compact_packed`` (deacon_tpu/ops/pallas_kernels.py).
+  ``select_compact_packed`` (deacon_tpu/ops/pallas_kernels.py): O(1)
+  work per base on the card (k-mers sliced from the packed words, a
+  van Herk / Gil-Werman window minimum, one scan per row).
 * K2 ``probe_hits`` (csrc/radix_probe.cu) replaces the TPU kernel
   ``radix_probe_hits`` (deacon_tpu/ops/radix_probe.py), whole-table and
   sharded (a block of bucket rows, ``row_lo``).

@@ -31,7 +31,35 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tile(rng, R, L, k, w):
+def k1_edge_rows(rng, L, k, w):
+    """Eight rows the K1 kernel's design can get wrong, appended after a
+    tile's random rows (so R grows by 8 and stays a multiple of 8 where it
+    was one): all-invalid; unused (mlen -1); a homopolymer whose every
+    window is selected (its total exceeds the slot budget past L = 128);
+    one window through allow_short (mlen 1); and four full-length rows
+    (mlen = L - k + 1, the last k-mer ending on the row's last base; the
+    tile's last row among them), three of them with constant stretches at
+    periods 29, 32 and 37, which put window minima on thread-run and warp
+    boundaries. tests/test_torch_ops.py holds the plain version against
+    the JAX package on the same rows."""
+    full = L - k + 1
+    codes = rng.integers(0, 4, (8, L)).astype(np.uint8)
+    validb = np.ones((8, L), dtype=bool)
+    mlen = np.full(8, full, dtype=np.int32)
+    allow = np.zeros(8, dtype=bool)
+    validb[0] = False
+    mlen[1] = -1
+    codes[2] = 2
+    mlen[3] = 1
+    allow[3] = True
+    for r, (s0, step) in zip((5, 6, 7), ((3, 29), (0, 32), (17, 37))):
+        for j, s in enumerate(range(s0, L, step)):
+            codes[r, s:s + k + w + 2] = j % 4
+            validb[r, s + k + w + 2:s + k + w + 3] = j % 3 != 0
+    return codes, validb, mlen, allow
+
+
+def _tile(rng, R, L, k, w, edge=False):
     codes = rng.integers(0, 4, (R, L)).astype(np.uint8)
     validb = rng.random((R, L)) > 0.03
     mlen = rng.integers(-1, L - k + 2, (R,)).astype(np.int32)
@@ -39,6 +67,11 @@ def _tile(rng, R, L, k, w):
     mlen[2] = max(1, w - 2)
     allow = rng.random(R) > 0.5
     allow[2] = True
+    if edge:
+        codes, validb, mlen, allow = (
+            np.concatenate([a, e]) for a, e in
+            zip((codes, validb, mlen, allow), k1_edge_rows(rng, L, k, w)))
+        R += 8
     c = codes.reshape(R, L // 4, 4)
     pc = c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)
     pv = np.packbits(validb, axis=1, bitorder="little")
@@ -46,13 +79,19 @@ def _tile(rng, R, L, k, w):
             (pc, pv, mlen, allow)]
 
 
-@pytest.mark.parametrize("k,w,L,R", [(31, 15, 256, 64), (32, 7, 2048, 16),
-                                     (21, 11, 16384, 8), (5, 3, 128, 8),
-                                     (31, 15, 16384, 512)])
+@pytest.mark.parametrize("k,w,L,R", [
+    (31, 15, 256, 64), (32, 7, 2048, 16), (21, 11, 16384, 8), (5, 3, 128, 8),
+    (31, 15, 16384, 512),
+    # the edges of the O(1) design: k = 1 and 32, w = 1 and wider than a
+    # thread's run or a warp (33, 63), padded runs (L = 128, 384, 1152)
+    (1, 15, 256, 16), (32, 15, 256, 16), (31, 1, 256, 16), (31, 33, 256, 16),
+    (15, 63, 2048, 8), (32, 63, 128, 9), (1, 1, 128, 8), (7, 33, 384, 8),
+    (31, 15, 1152, 8), (13, 63, 16384, 8), (32, 5, 12288, 8),
+])
 def test_k1_kernel_matches_plain(cuda, k, w, L, R):
     rng = np.random.default_rng(k + w + L)
     Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
-    args = [a.to(cuda) for a in _tile(rng, R, L, k, w)]
+    args = [a.to(cuda) for a in _tile(rng, R, L, k, w, edge=True)]
     pos, val, tot = tk.select_compact(*args, k=k, w=w, Br=Br)
     ppos, pval, ptot = tk.select_compact_plain(*args, k=k, w=w, Br=Br)
     torch.cuda.synchronize()
@@ -60,6 +99,31 @@ def test_k1_kernel_matches_plain(cuda, k, w, L, R):
     live = torch.arange(Br, device=cuda)[None, :] < tot.clamp(max=Br)[:, None]
     assert torch.equal(pos[live], ppos[live])
     assert torch.equal(val[live], pval[live])
+    assert int(tot.sum()) > 0
+    if L > 128:
+        assert bool((tot > Br).any())  # the homopolymer row overflows
+
+
+def test_k1_kernel_unaligned_inputs_match_plain(cuda):
+    """Packed inputs that do not start on a 16-byte boundary take the
+    kernel's byte-wise staging path."""
+    k, w, L, R = 31, 15, 256, 16
+    rng = np.random.default_rng(5)
+    Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
+    pc, pv, mlen, allow = [a.to(cuda) for a in
+                           _tile(rng, R, L, k, w, edge=True)]
+    pcu = torch.empty(pc.numel() + 1, dtype=torch.uint8, device=cuda)
+    pvu = torch.empty(pv.numel() + 1, dtype=torch.uint8, device=cuda)
+    pcu = pcu[1:].view(pc.shape).copy_(pc)
+    pvu = pvu[1:].view(pv.shape).copy_(pv)
+    got = tk.select_compact(pcu, pvu, mlen, allow, k=k, w=w, Br=Br)
+    want = tk.select_compact_plain(pc, pv, mlen, allow, k=k, w=w, Br=Br)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+    live = (torch.arange(Br, device=cuda)[None, :]
+            < got[2].clamp(max=Br)[:, None])
+    for g, x in zip(got[:2], want[:2]):
+        assert torch.equal(g[live], x[live])
 
 
 @pytest.mark.parametrize("k,w,L,R", [(41, 15, 256, 64), (56, 9, 2048, 16),

@@ -24,6 +24,7 @@ from deacon_tpu_torch.ops import kernels as tk  # noqa: E402
 from deacon_tpu_torch.ops import pack as tpack  # noqa: E402
 from deacon_tpu_torch.ops import radix_probe as trp  # noqa: E402
 from deacon_tpu_torch.ops.hash import xxh3_64, xxh3_64_u128  # noqa: E402
+from tests.test_torch_cuda import k1_edge_rows  # noqa: E402
 
 _B = np.frombuffer(b"ACGT", np.uint8)
 
@@ -123,7 +124,10 @@ def _random_tile(rng, R, L, k, w):
     allow_short = rng.random(R) > 0.5
     allow_short[2] = True
     codes[3, 40:200] = codes[3, 40]  # low complexity
-    return codes, validb, mlen, allow_short
+    # the card's edge rows after the random ones, which stay as they were
+    return tuple(np.concatenate([a, e]) for a, e in
+                 zip((codes, validb, mlen, allow_short),
+                     k1_edge_rows(rng, L, k, w)))
 
 
 def _port_k1(pc, pv, mlen, allow, k, w, Br):
@@ -150,7 +154,9 @@ def _assert_k1_equal(got, want_pos, want_v0, want_v1, want_tot, Br):
 
 
 @pytest.mark.parametrize("k,w,L", [(31, 15, 256), (32, 7, 128),
-                                   (17, 21, 256), (5, 3, 128)])
+                                   (17, 21, 256), (5, 3, 128),
+                                   (1, 15, 256), (32, 1, 128), (31, 33, 256),
+                                   (21, 63, 128), (1, 1, 128)])
 def test_k1_plain_matches_pallas_interpret(k, w, L):
     rng = np.random.default_rng(k * 101 + w)
     R, Br = 8, 128
@@ -166,7 +172,9 @@ def test_k1_plain_matches_pallas_interpret(k, w, L):
 
 
 @pytest.mark.parametrize("k,w", [(31, 15), (32, 15), (21, 7), (16, 16),
-                                 (13, 11), (31, 25), (15, 63), (2, 15)])
+                                 (13, 11), (31, 25), (15, 63), (2, 15),
+                                 (1, 15), (32, 1), (31, 33), (32, 63),
+                                 (1, 1)])
 def test_k1_plain_matches_xla_emulation(k, w, monkeypatch):
     monkeypatch.setenv("DEACON_PALLAS", "0")
     rng = np.random.default_rng(k * 7 + w)
