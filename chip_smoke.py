@@ -9,9 +9,9 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
 2. kernel parity at main-path shapes: K1 (select_compact) at the three
    default tiles and K2 (probe_hits) on a production-sized sorted stream
    with a forced spill table, each against its plain PyTorch version
-   (exact: the outputs are integers), with times and bounds; K1's time
-   is its device time (CUDA-graph replay), printed beside the time
-   around wrapper calls and its ratio to the bound;
+   (exact: the outputs are integers), with times and bounds; K1's and
+   K2's times are device times (CUDA-graph replay), printed beside the
+   time around wrapper calls (call_ms) and the ratio to the bound;
 3. CLI end to end: ``deacon_tpu_torch.cli.main(["index", "build", ...])``
    on the card writes a seeded 2 Mbp genome's index, byte-identical to
    the index written from the host NumPy oracle; ``filter`` against it,
@@ -59,8 +59,8 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    shard (build_radix_shards) for S = 4 and S = 3 (uneven row ranges),
    and the main-path stream: the blocks concatenated equal the table,
    each shard's hits equal its plain version's, and their sum the
-   unsharded K2's hits exactly; times of the S launches and the
-   unsharded one, and the bound;
+   unsharded K2's hits exactly; device times (and call_ms) of the S
+   launches together and of the unsharded one, and the bound;
 14. ``filter --mesh``: --mesh 1x1 on the card byte-identical to the run
    without --mesh and to --device cpu --mesh 2x4, single and paired;
    --mesh 1x2 on one card exits 1 with "need 2 devices, have 1";
@@ -82,8 +82,14 @@ phase.
 
 ``python3 chip_smoke.py --k1`` runs phases 0 and 1 and then K1's part of
 phase 2 alone, printing its numbers as the last line and no result: the
-quickest check and timing of K1. Copied into a checkout of an earlier
-commit and run there, it times that commit's K1 by the same measures.
+quickest check and timing of K1. ``python3 chip_smoke.py --k2`` does
+the same for K2: phases 0 and 1, then phase 4's table and main-path
+stream (K2 whole and its S = 4 and S = 3 launches, as in phase 13), a
+repeat-heavy stream (one read holding most member keys, beside the same
+keys spread over reads) and phase 2's stream, each exact against the
+plain version, by device time and call_ms. Copied into a checkout of an
+earlier commit and run there, either times that commit's kernel by the
+same measures.
 
 Every temporary file lives in a tempfile directory outside the checkout
 and is deleted; nothing is left running. Exits non-zero, printing no
@@ -171,10 +177,9 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
-    """Mean device ms per call: reps calls captured in one CUDA graph,
-    replayed iters times between CUDA events, so that the host's time per
-    call (the wrapper's checks and allocations) is not counted."""
+def _graph(fn, reps: int):
+    """reps calls of fn captured in one CUDA graph (after two warm-up calls
+    on a side stream), replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -187,6 +192,24 @@ def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def _replay_ms(graph) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
+    """Mean device ms per call: reps calls captured in one CUDA graph,
+    replayed iters times between CUDA events, so that the host's time per
+    call (the wrapper's checks and allocations) is not counted."""
+    graph = _graph(fn, reps)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -195,6 +218,34 @@ def graph_ms(fn, reps: int = 20, iters: int = 5) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / (reps * iters)
+
+
+#: bytes read between calls to evict the card's 50 MB L2 cache (cold_ms)
+L2_FLUSH_BYTES = 256 << 20
+
+
+def cold_ms(fn, reps: int = 20, iters: int = 7) -> float:
+    """Device ms per call of fn with the L2 cache flushed before each call:
+    one graph of reps (read of L2_FLUSH_BYTES, fn) pairs and one of the
+    reads alone, replayed in turns iters times; the median of the first
+    less the median of the second, over reps. Where graph_ms replays one
+    input, the sectors fn touched stay in L2 from call to call; a filter
+    batch finds its table rows in device memory."""
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def flush():
+        return buf.sum()
+
+    def both():
+        flush()
+        return fn()
+
+    g_both, g_flush = _graph(both, reps), _graph(flush, reps)
+    t_both, t_flush = [], []
+    for _ in range(iters):
+        t_flush.append(_replay_ms(g_flush))
+        t_both.append(_replay_ms(g_both))
+    return (float(np.median(t_both)) - float(np.median(t_flush))) / reps
 
 
 @contextlib.contextmanager
@@ -357,13 +408,12 @@ def k1_tiles(rng) -> dict:
     return k1
 
 
-def phase2(rng) -> dict:
-    t0 = time.perf_counter()
+def dense_k2_stream():
+    """Phase 2's K2 input: a production-sized stream (the (2048, 2048)
+    tile's slot grid at the real density) on a 2**21-key table with a
+    forced spill. Returns (table, key, srid, first, reads)."""
     dev = torch.device("cuda")
     budget_frac = default_budget_frac(W_)
-    k1 = k1_tiles(rng)
-    # K2: production-sized stream (the (2048, 2048) tile's slot grid at
-    # the real density) on a table with a forced spill
     g = torch.Generator(device=dev).manual_seed(SEED)
     keys = torch.randint(I64_MIN, (1 << 63) - 1, (1 << 21,), device=dev,
                          dtype=torch.int64, generator=g)
@@ -389,8 +439,13 @@ def phase2(rng) -> dict:
     valid[0, :8] = True
     rid = (torch.arange(R, device=dev, dtype=torch.int32) // 2)
     key, srid, first = prep_sorted(hashes, valid, rid[:, None].expand(R, Br))
+    return table, key, srid, first, R // 2
 
-    k2 = measure_k2(table, key, srid, first, R // 2)
+
+def phase2(rng) -> dict:
+    t0 = time.perf_counter()
+    k1 = k1_tiles(rng)
+    k2 = measure_k2(*dense_k2_stream())
     log("2 kernel parity", t0, k1=json.dumps(k1["tiles"]),
         k2=json.dumps(k2))
     return {"k1": k1, "k2": k2}
@@ -1241,17 +1296,11 @@ def switch_window(table, k: int, reads, ref, n_bp: int, label: str,
     return numbers
 
 
-def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False):
-    """Phase 4 (k=31) or 7 (k=41): a panhuman-scale table and ~20 Mbp of
-    reads through DeviceDecider, every unit against the reference; then
-    the same reads under each of ``windows`` ((label, switches, kernel)),
-    and with ``sharded`` phase 13 (K2's sharded form on the table and the
-    main-path stream) and window 4d (the reads through ShardedDecider on
-    a 2x4 mesh of the card), before the table is freed."""
-    t0 = time.perf_counter()
+def panhuman_keys(rng, k: int, phase: str):
+    """A seeded 5 Mbp genome and the index keys of phases 4 and 7: 4.1e8
+    random u64 keys made on the card plus the genome's minimizers at k,
+    distinct and sorted. Returns (genome, keys, seconds to make them)."""
     dev = torch.device("cuda")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     genome = rand_seq(rng, 5_000_000)
     g_hashes = dtt.compute_minimizer_hashes(genome, k, W_)
     t_keys = time.perf_counter()
@@ -1262,7 +1311,21 @@ def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False):
     keys_u = sorted_unique_keys(keys)
     del keys
     torch.cuda.synchronize()
-    keys_s = time.perf_counter() - t_keys
+    return genome, keys_u, time.perf_counter() - t_keys
+
+
+def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False):
+    """Phase 4 (k=31) or 7 (k=41): a panhuman-scale table and ~20 Mbp of
+    reads through DeviceDecider, every unit against the reference; then
+    the same reads under each of ``windows`` ((label, switches, kernel)),
+    and with ``sharded`` phase 13 (K2's sharded form on the table and the
+    main-path stream) and window 4d (the reads through ShardedDecider on
+    a 2x4 mesh of the card), before the table is freed."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    genome, keys_u, keys_s = panhuman_keys(rng, k, phase)
+    dev = keys_u.device
     t_tab = time.perf_counter()
     decider = DeviceDecider(keys_u, k, W_, "cuda")
     torch.cuda.synchronize()
@@ -1337,15 +1400,61 @@ def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False):
             "windows": extra, "k2_sharded": k2_sharded}
 
 
+def k2_bound(table, key, srid, first, n_seg: int, blocks=None) -> dict:
+    """K2's bound on one sorted stream, for the whole table or (blocks:
+    (row_lo, rows) of each shard) the S launches together, which split
+    the stream between them. Bytes: the stream's (4 B srid per query, 4 B
+    first per real one, 8 B key per live one (real and first of its
+    run)), one 32 B sector of each distinct main row that the live
+    queries touch, one of each distinct spill row that a full main row
+    sends a query to (not in the row, above its slot 127), and the 4 B
+    hits per read of each launch; operations: one sector's four 64-bit
+    compares per probed row. bound_scan_ms is the bound of a kernel that
+    scans rows, as the first version of K2 did, for the same stream: each
+    shard reads the whole stream, each row and each spill row of a
+    non-member is read whole (1 KB), and every slot is compared."""
+    p, sp = table.p, table.sp
+    blocks = blocks or [(0, 1 << p)]
+    real = srid >= 0
+    live = real & (first != 0)
+    q, n_real = key.numel(), int(real.sum())
+    lk = key[live]
+    n_live = lk.numel()
+    bucket = lsr(lk, 64 - p)
+    main = K._member_plain(table.slots, p, lk)
+    last = table.slots[:, 127][bucket]
+    sent = (~main & (lsr(last, 64 - p) == bucket)
+            & ((last ^ I64_MIN) < (lk ^ I64_MIN)))
+    rows = int(torch.unique(bucket).numel())
+    spill_rows = spill_rows_scan = 0
+    if sp:
+        for lo, n in blocks:
+            own = (bucket >= lo) & (bucket < lo + n)
+            spill_rows += int(torch.unique(
+                lsr(lk[own & sent], 64 - sp)).numel())
+            spill_rows_scan += int(torch.unique(
+                lsr(lk[own & ~main], 64 - sp)).numel())
+    stream = 4 * q + 4 * n_real + 8 * n_live
+    s = len(blocks)
+    nbytes = stream + 32 * (rows + spill_rows) + 4 * n_seg * s
+    n_sent = int(sent.sum()) if sp else 0
+    b, by = bound_ms(nbytes, (n_live + n_sent) * 8.0)
+    scan_bytes = (s * (stream + 4 * n_seg)
+                  + 1024 * (rows + spill_rows_scan))
+    n_miss = int((~main).sum()) if sp else 0
+    scan, _ = bound_ms(scan_bytes, (n_live + n_miss) * 128 * 2.0)
+    return {"q": q, "p": p, "sp": sp, "real": n_real, "live": n_live,
+            "rows_touched": rows, "spill_rows": spill_rows,
+            "spill_probes": n_sent, "bytes": nbytes, "bound_ms": b,
+            "bound_by": by, "scan_bytes": scan_bytes, "bound_scan_ms": scan}
+
+
 def measure_k2(table, key, srid, first, n_seg: int) -> dict:
-    """K2 against its plain version on one sorted stream: exactness, ms
-    of both, the bytes the probe must move and the bound. Bytes: the
-    4-byte srid of every query, the 4-byte first flag of every real one,
-    the 8-byte key of every live one (real and first of its run), each
-    distinct 1 KB main-table row the live queries touch and each distinct
-    spill row their non-members touch (the bound assumes the 128-slot row
-    scan; a search of a sorted row would read less), and the 4-byte hits
-    per read."""
+    """K2 against its plain version on one sorted stream: exactness; ms,
+    its device time (CUDA-graph replay); cold_ms, the same with the L2
+    cache flushed before each call; call_ms, events around wrapper calls
+    (the earlier measure, which counts the wrapper's host time where
+    that is longer); the plain version's ms; the bound (k2_bound)."""
     args = (table.slots, table.spill, key, srid, first)
     kw = {"p": table.p, "sp": table.sp, "num_segments": n_seg}
     h_k = K.probe_hits(*args, **kw)
@@ -1354,28 +1463,19 @@ def measure_k2(table, key, srid, first, n_seg: int) -> dict:
     err = int((h_k - h_p).abs().max())
     if err:
         raise AssertionError(f"K2 differs from its plain version (p={table.p})")
-    real = srid >= 0
-    live = real & (first != 0)
-    q, n_real, n_live = key.numel(), int(real.sum()), int(live.sum())
-    lk = key[live]
-    rows = int(torch.unique(lsr(lk, 64 - table.p)).numel())
-    spill_rows = spill_probes = 0
-    if table.sp:
-        miss = lk[~K._member_plain(table.slots, table.p, lk)]
-        spill_probes = miss.numel()
-        spill_rows = int(torch.unique(lsr(miss, 64 - table.sp)).numel())
-    nbytes = (4 * q + 4 * n_real + 8 * n_live + (rows + spill_rows) * 1024
-              + 4 * n_seg)
-    ops = (n_live + spill_probes) * 128 * 2.0  # 64-bit compare: 2 int32 ops
-    b, by = bound_ms(nbytes, ops)
-    return {"q": q, "p": table.p, "sp": table.sp, "real": n_real,
-            "live": n_live, "rows_touched": rows, "spill_rows": spill_rows,
-            "hits": int(h_k.sum()),
-            "ms": time_ms(lambda: K.probe_hits(*args, **kw), 20),
-            "plain_ms": time_ms(lambda: K.probe_hits_plain(*args, **kw), 3,
-                                warm=1),
-            "bytes": nbytes, "bound_ms": b, "bound_by": by,
-            "max_abs_err": err}
+
+    def kern():
+        return K.probe_hits(*args, **kw)
+
+    out = k2_bound(table, key, srid, first, n_seg)
+    out.update({"hits": int(h_k.sum()), "ms": graph_ms(kern),
+                "cold_ms": cold_ms(kern), "call_ms": time_ms(kern, 20),
+                "plain_ms": time_ms(lambda: K.probe_hits_plain(*args, **kw),
+                                    3, warm=1),
+                "max_abs_err": err})
+    out["ratio_to_bound"] = round(out["ms"] / out["bound_ms"], 2)
+    out["ratio_to_bound_scan"] = round(out["ms"] / out["bound_scan_ms"], 2)
+    return out
 
 
 def main_path_stream(pipe: DevicePipeline, reads: list[bytes]):
@@ -1403,29 +1503,36 @@ def main_path_stream(pipe: DevicePipeline, reads: list[bytes]):
 def phase13_k2_sharded(keys_u, table, stream) -> dict:
     """K2's sharded form on phase 4's table (rebuilt shard by shard with
     build_radix_shards, on the card) and the main-path stream, for S = 4
-    and S = 3 (uneven row ranges): the blocks concatenated equal the
-    table's slots; each shard's K2 hits equal its plain version on the
-    same block; their sum equals the unsharded K2's hits exactly. Times:
-    the S launches together and the unsharded launch (time_ms). Bytes:
-    each shard reads the stream (4 B srid per query, 4 B first per real
-    query, 8 B key per live one: at most 16 B per query) and writes its
-    hits, and reads the distinct bucket rows it owns that its live
-    queries touch and the distinct spill rows its non-members touch, 1 KB
-    each."""
+    and S = 3 (uneven row ranges; S = 3's middle block straddles row
+    2**(p-1)): the blocks concatenated equal the table's slots; each
+    shard's K2 hits equal its plain version on the same block; their sum
+    equals the unsharded K2's hits exactly. Times of the S launches
+    together and of the unsharded launch, each as device time (ms,
+    CUDA-graph replay; cold_ms, with the L2 cache flushed before them)
+    and around wrapper calls (call_ms); the bound of the S launches
+    together (k2_bound)."""
     t0 = time.perf_counter()
     key, srid, first, n_seg = stream
     kw = {"p": table.p, "sp": table.sp, "num_segments": n_seg}
-    whole = K.probe_hits(table.slots, table.spill, key, srid, first, **kw)
-    whole_ms = time_ms(lambda: K.probe_hits(
-        table.slots, table.spill, key, srid, first, **kw), 20)
-    real = srid >= 0
-    live = real & (first != 0)
-    q, n_real = key.numel(), int(real.sum())
-    lk = key[live]
-    bucket = lsr(lk, 64 - table.p)
-    main = K._member_plain(table.slots, table.p, lk)
-    out = {"q": q, "p": table.p, "sp": table.sp, "live": int(live.sum()),
-           "unsharded_ms": whole_ms}
+
+    def launch_whole():
+        return K.probe_hits(table.slots, table.spill, key, srid, first, **kw)
+
+    # what every launch costs besides its queries: the wrapper's zeroed
+    # hits (a fill kernel), and K2 on an all-filler stream of the same q
+    idle = (torch.full_like(key, -1), torch.full_like(srid, -1),
+            torch.zeros_like(first))
+    idle[2][:1] = 1
+    whole = launch_whole()
+    out = {"q": key.numel(), "p": table.p, "sp": table.sp,
+           "live": int(((srid >= 0) & (first != 0)).sum()),
+           "unsharded_ms": graph_ms(launch_whole),
+           "unsharded_cold_ms": cold_ms(launch_whole),
+           "unsharded_call_ms": time_ms(launch_whole, 20),
+           "fill_ms": graph_ms(lambda: torch.zeros(
+               n_seg, dtype=torch.int32, device=key.device)),
+           "idle_launch_ms": graph_ms(lambda: K.probe_hits(
+               table.slots, table.spill, *idle, **kw))}
     for n_shard in (4, 3):
         t_b = time.perf_counter()
         shards = build_radix_shards(keys_u, n_shard,
@@ -1458,31 +1565,23 @@ def phase13_k2_sharded(keys_u, table, stream) -> dict:
             raise AssertionError(f"S={n_shard}: sharded K2 differs (plain "
                                  f"err {err}, sum equal "
                                  f"{torch.equal(total, whole)})")
-        nbytes, rows, spill_rows = 0, 0, 0
-        for t in shards:
-            own = (bucket >= t.row_lo) & (bucket < t.row_lo + t.slots.shape[0])
-            rows_j = int(torch.unique(bucket[own]).numel())
-            sp_j = 0
-            if table.sp:
-                miss = lk[own & ~main]
-                sp_j = int(torch.unique(lsr(miss, 64 - table.sp)).numel())
-            rows += rows_j
-            spill_rows += sp_j
-            nbytes += (4 * q + 4 * n_real + 8 * lk.numel() + 4 * n_seg
-                       + (rows_j + sp_j) * 1024)
-        ops = (lk.numel() + int((~main).sum()) * (table.sp > 0)) * 128 * 2.0
-        b, by = bound_ms(nbytes, ops)
+        bound = k2_bound(table, key, srid, first, n_seg,
+                         [(t.row_lo, t.slots.shape[0]) for t in shards])
+        ms = graph_ms(launch_all)
         out[f"S{n_shard}"] = {
             "rows": [t.slots.shape[0] for t in shards],
-            "build_s": round(build_s, 3),
-            "ms": time_ms(launch_all, 20),
+            "build_s": round(build_s, 3), "ms": ms,
+            "cold_ms": cold_ms(launch_all),
+            "call_ms": time_ms(launch_all, 20),
             "plain_ms": time_ms(lambda: [
                 K.probe_hits_plain(t.slots, t.spill, key, srid, first,
                                    row_lo=t.row_lo, **kw) for t in shards],
                 3, warm=1),
-            "rows_touched": rows, "spill_rows": spill_rows, "bytes": nbytes,
-            "bound_ms": b, "bound_by": by, "max_abs_err": err,
-            "hits": int(total.sum())}
+            **{n: bound[n] for n in ("rows_touched", "spill_rows", "bytes",
+                                     "bound_ms", "bound_by",
+                                     "bound_scan_ms")},
+            "max_abs_err": err, "hits": int(total.sum()),
+            "ratio_to_unsharded": round(ms / out["unsharded_ms"], 2)}
         del shards, per, total
         torch.cuda.empty_cache()
     log("13 K2 sharded parity", t0, **{n: json.dumps(v)
@@ -1547,6 +1646,58 @@ def sharded_window(keys_u, k: int, reads, ref, n_bp: int) -> dict:
     log("4d panhuman scale k=31, sharded 2x4", t0, **{
         n: json.dumps(v) for n, v in numbers.items()})
     return numbers
+
+
+def repeat_heavy(table, keys_u) -> dict:
+    """K2 on a repeat-heavy stream, the worst case for its atomics:
+    256 x 512 slots, all valid, of member keys of phase 4's table, rows
+    0-239 one read unit and the last 16 rows a read each ("one_read");
+    and the same keys with every row its own read ("spread"): the same
+    probes with other atomic targets. Each exact against the plain
+    version, with its device time (measure_k2)."""
+    dev = keys_u.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    R, Br = 256, 512
+    pick = torch.randint(0, keys_u.numel(), (R * Br,), device=dev,
+                         generator=g)
+    hashes = keys_u[pick].reshape(R, Br)
+    valid = torch.ones((R, Br), dtype=torch.bool, device=dev)
+    rows = torch.arange(R, device=dev, dtype=torch.int32)
+    out = {}
+    for name, rid in (("one_read", (rows - (R - 17)).clamp(min=0)),
+                      ("spread", rows)):
+        key, srid, first = prep_sorted(hashes, valid,
+                                       rid[:, None].expand(R, Br))
+        m = measure_k2(table, key, srid, first, int(rid.max()) + 1)
+        out[name] = {n: m[n] for n in ("live", "hits", "ms", "cold_ms",
+                                       "call_ms", "bound_ms",
+                                       "max_abs_err")}
+    out["one_read_over_spread"] = round(
+        out["one_read"]["ms"] / out["spread"]["ms"], 3)
+    return out
+
+
+def k2_alone(rng) -> dict:
+    """``--k2``: K2 alone, exact against its plain version and timed by
+    device time and around wrapper calls (measure_k2), on phase 4's table
+    (4.1e8 keys) and main-path stream, with phase 13's S = 4 and S = 3
+    launches and the repeat-heavy stream, then on phase 2's stream. Uses
+    only interfaces that earlier commits of the port have, so that a copy
+    of this script times their K2 by the same measures."""
+    t0 = time.perf_counter()
+    genome, keys_u, _ = panhuman_keys(rng, K_, "4")
+    decider = DeviceDecider(keys_u, K_, W_, "cuda")
+    table = decider.pipe.table
+    single, _, _ = make_reads(rng, genome)
+    stream = main_path_stream(decider.pipe, single[:8192])
+    out = {"phase4": measure_k2(table, *stream),
+           "sharded": phase13_k2_sharded(keys_u, table, stream),
+           "repeat_heavy": repeat_heavy(table, keys_u)}
+    del decider, table, stream, keys_u
+    torch.cuda.empty_cache()
+    out["phase2"] = measure_k2(*dense_k2_stream())
+    log("2-13 K2 alone", t0, **{n: json.dumps(v) for n, v in out.items()})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1661,6 +1812,24 @@ def main() -> int:
     secs = _build.build()
     _build.library()
     log("1 build", t0, nvcc_s=secs if secs is not None else "cached")
+    if sys.argv[1:] == ["--k2"]:
+        k2 = k2_alone(rng)
+        sh = k2["sharded"]
+        print(json.dumps({
+            **{n: {m: k2[n][m] for m in ("ms", "cold_ms", "call_ms",
+                                         "plain_ms", "bound_ms",
+                                         "bound_scan_ms", "max_abs_err")}
+               for n in ("phase4", "phase2")},
+            **{n: sh[n] for n in ("unsharded_ms", "unsharded_cold_ms",
+                                  "unsharded_call_ms", "fill_ms",
+                                  "idle_launch_ms")},
+            **{n: {m: sh[n][m] for m in ("ms", "cold_ms", "call_ms",
+                                         "bound_ms", "bound_scan_ms",
+                                         "max_abs_err",
+                                         "ratio_to_unsharded")}
+               for n in ("S4", "S3")},
+            "repeat_heavy": k2["repeat_heavy"]}), flush=True)
+        return 0
     if sys.argv[1:] == ["--k1"]:
         t0 = time.perf_counter()
         k1 = k1_tiles(rng)
@@ -1703,8 +1872,10 @@ def main() -> int:
          "max_abs_err": max(k2["max_abs_err"], p2["k2"]["max_abs_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None,
-         "shapes": "one (256, 8192) batch stream, panhuman table"},
+         "library_ms": None, "call_ms": k2["call_ms"],
+         "cold_ms": k2["cold_ms"], "bound_scan_ms": k2["bound_scan_ms"],
+         "shapes": "one (256, 8192) batch stream, panhuman table; ms by "
+                   "CUDA-graph replay, call_ms around wrapper calls"},
         {"name": "K3 values_select", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/values_select.cu",
          "replaces": "deacon_tpu/ops/pallas_kernels.py:312",
@@ -1737,12 +1908,19 @@ def main() -> int:
                             k2s["S3"]["max_abs_err"]),
          "ms": k2s["S4"]["ms"], "plain_ms": k2s["S4"]["plain_ms"],
          "bound_ms": k2s["S4"]["bound_ms"], "bound_by": k2s["S4"]["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "call_ms": k2s["S4"]["call_ms"],
+         "cold_ms": k2s["S4"]["cold_ms"],
+         "bound_scan_ms": k2s["S4"]["bound_scan_ms"],
          "shapes": "S=4 row ranges (the 4 launches together), panhuman "
-                   "table, one (256, 8192) batch stream; S=3 beside it",
-         "S3": {n: k2s["S3"][n] for n in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "max_abs_err")},
-         "unsharded_ms": k2s["unsharded_ms"]},
+                   "table, one (256, 8192) batch stream; S=3 beside it; "
+                   "ms by CUDA-graph replay, call_ms around wrapper calls",
+         "S3": {n: k2s["S3"][n] for n in ("ms", "cold_ms", "call_ms",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by", "bound_scan_ms",
+                                           "max_abs_err")},
+         "unsharded_ms": k2s["unsharded_ms"],
+         "unsharded_cold_ms": k2s["unsharded_cold_ms"],
+         "ratio_to_unsharded": k2s["S4"]["ratio_to_unsharded"]},
     ]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the main path was never launched")

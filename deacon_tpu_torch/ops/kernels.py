@@ -471,7 +471,10 @@ def probe_hits_plain(slots, spill, keys, srid, first, *, p: int, sp: int,
 def probe_hits(slots, spill, keys, srid, first, *, p: int, sp: int,
                num_segments: int, row_lo: int = 0):
     """K2 wrapper: same arguments and result as probe_hits_plain. One
-    launch per call, so a sharded probe launches once per shard."""
+    launch per call, so a sharded probe launches once per shard. The
+    kernel relies on the stream's order (by key as int64, then srid, as
+    prep_sorted sorts it) and on the row order of the port's tables
+    (radix_probe._fill_slots); the plain version needs neither."""
     q = keys.shape[0]
     dev = keys.device
     rows = slots.shape[0]

@@ -81,7 +81,13 @@ def _fill_slots(keys: torch.Tensor, bits: int, row_lo: int = 0,
     """(rows, 128) slot block of bucket rows [row_lo, row_lo + rows)
     (default: all 2**bits) from the unsigned-ascending keys of those rows,
     plus the keys whose rank in their bucket is >= 128 (in the same
-    order)."""
+    order).
+
+    Row order, which K2's kernel relies on: the c keys of bucket b sit
+    ascending as u64 in slots 0..c-1 and its filler fills slots c..127,
+    so a bucket has keys past slot 127 (spill keys) only when its row is
+    full (slot 127 holds a key of b), and each is above that key. The
+    JAX package's _pack_planes lays rows out the same way."""
     nb = (1 << bits) if rows is None else rows
     dev = keys.device
     b = _bucket_of(keys, bits) - row_lo

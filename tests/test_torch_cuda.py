@@ -235,6 +235,133 @@ def test_k2_sharded_kernel_matches_plain_and_whole_table(cuda, n_shard):
     assert torch.equal(sum(per), whole_hits) and int(whole_hits.sum()) > 0
 
 
+#: K2's edge cases: each is a table and a sorted stream made from a seeded
+#: numpy generator (see _k2_case)
+K2_CASES = ["empty", "ragged", "all_filler", "spill_planted",
+            "key_minus_one", "p5", "p22", "repeat_heavy", "unaligned"]
+
+
+def _k2_table(keys, dev, p=None):
+    """The radix table of the distinct u64 keys, built on dev; at bucket
+    bits p when given (through the builder's own _fill_slots and
+    _pack_spill), else at choose_p's."""
+    t = torch.from_numpy(np.unique(keys).view(np.int64)).to(dev)
+    if p is None:
+        return trp.build_radix_table(t)
+    slots, over = trp._fill_slots(t, p)
+    spill, sp = trp._pack_spill(over) if over.numel() else (None, 0)
+    return trp.RadixTable(slots, p, t.numel(), spill, sp)
+
+
+def _k2_case(name, dev, p22=22):
+    """(table, key, srid, first, num_segments) of one K2_CASES case on dev:
+    empty (q = 0); ragged (q = 37 x 29, not a multiple of the 32-entry
+    tile); all_filler (every slot a filler); spill_planted (a full bucket
+    with spill keys: its last main key, its first and last spilled keys
+    and two absent keys of the bucket, planted several times in one read
+    and once in others); key_minus_one (index and queries hold u64 max, 0
+    and u64 max - 1, next to a filler run); p5 (a 2,200-key table at p =
+    5 with a spill); p22 (a sparse table forced to p = p22, most rows
+    empty); repeat_heavy (one read holds most of the live member keys);
+    unaligned (spill_planted's inputs with the tables moved to 8-byte
+    aligned storage, which the kernel reads 8 bytes at a time)."""
+    if name == "unaligned":
+        t, key, srid, first, nseg = _k2_case("spill_planted", dev)
+        return (trp.RadixTable(_misaligned(t.slots), t.p, t.n_keys,
+                               _misaligned(t.spill), t.sp),
+                key, srid, first, nseg)
+    rng = np.random.default_rng(K2_CASES.index(name) + 60)
+    n = {"p5": 2000, "p22": 1 << 20, "repeat_heavy": 1 << 20,
+         "spill_planted": 200_000}.get(name, 50_000)
+    keys = np.unique(rng.integers(0, 2**64, n, dtype=np.uint64))
+    low = 58 if name == "p5" else 36  # the planted bucket's free bits
+    top = int(keys[n // 2]) & ~((1 << low) - 1)
+    planted = np.uint64(top) | rng.integers(0, 1 << low, 200 if name == "p5"
+                                             else 180, dtype=np.uint64)
+    extra = ([2**64 - 1, 2**64 - 2, 0] if name == "key_minus_one" else [])
+    keys = np.unique(np.concatenate([keys, planted,
+                                     np.array(extra, dtype=np.uint64)]))
+    t = _k2_table(keys, dev, p22 if name == "p22" else None)
+    R, Br, per_read = {"empty": (0, 8, 1), "ragged": (37, 29, 1),
+                       "repeat_heavy": (64, 1024, 1)}.get(name, (128, 96, 2))
+    qk = np.where(rng.random((R, Br)) < 0.5, rng.choice(keys, (R, Br)),
+                  rng.integers(0, 2**64, (R, Br), dtype=np.uint64))
+    valid = rng.random((R, Br)) < 0.67
+    rid = np.arange(R, dtype=np.int32) // per_read
+    if name == "all_filler":
+        valid[:] = False
+    if name == "spill_planted":
+        b = np.sort(keys[(keys >> np.uint64(64 - t.p)) == (top >> (64 - t.p))])
+        assert b.size > 128 and t.sp > 0
+        # slot 127's key, the first and last spilled keys, a key absent
+        # between slots 126 and 127 and one above every key of the bucket
+        plant = [b[127], b[128], b[-1], b[126] + np.uint64(1), b[-1] + np.uint64(1)]
+        for j, kv in enumerate(plant):
+            qk[0, 3 * j:3 * j + 3] = kv
+            qk[10 + j, j] = kv
+        valid[0, :15] = True
+        valid[10:15] = True
+    if name == "key_minus_one":
+        for r, kv in ((1, 2**64 - 1), (2, 2**64 - 1), (5, 2**64 - 1),
+                      (6, 0), (7, 2**64 - 2), (9, 2**64 - 3)):
+            qk[r, :4] = kv
+            valid[r, :4] = True
+    if name == "repeat_heavy":
+        qk[:56] = rng.choice(keys, 56 * Br, replace=False).reshape(56, Br)
+        rid = np.concatenate([np.zeros(56, np.int32),
+                              np.arange(1, R - 55, dtype=np.int32)])
+    nseg = max(int(rid.max()) + 1, 1) if R else 4
+    hashes = torch.from_numpy(qk.view(np.int64)).to(dev)
+    rid_t = torch.from_numpy(rid).to(dev)
+    key, srid, first = trp.prep_sorted(hashes, torch.from_numpy(valid).to(dev),
+                                       rid_t[:, None].expand(R, Br))
+    return t, key, srid, first, nseg
+
+
+def _misaligned(x):
+    """A contiguous copy of x whose data starts 8 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    off = 1 if buf.data_ptr() % 16 == 0 else 2
+    y = buf[off:off + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 8
+    return y
+
+
+def _k2_shards(t, n_shard):
+    """The table's blocks of bucket rows for n_shard shards, as
+    build_radix_shards cuts them (tests/test_torch_sharded.py holds the
+    two equal)."""
+    rows = 1 << t.p
+    return [trp.RadixTable(t.slots[j * rows // n_shard:
+                                   (j + 1) * rows // n_shard],
+                           t.p, 0, t.spill, t.sp, row_lo=j * rows // n_shard)
+            for j in range(n_shard)]
+
+
+@pytest.mark.parametrize("name", K2_CASES)
+def test_k2_kernel_edge_cases_match_plain_and_whole_table(cuda, name):
+    t, key, srid, first, nseg = _k2_case(name, cuda)
+    kw = dict(p=t.p, sp=t.sp, num_segments=nseg)
+    got = tk.probe_hits(t.slots, t.spill, key, srid, first, **kw)
+    want = tk.probe_hits_plain(t.slots, t.spill, key, srid, first, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (int(want.sum()) > 0) == (name not in ("empty", "all_filler"))
+    if name == "repeat_heavy":
+        assert int(want[0]) > int(want.sum()) // 2
+    for n_shard in (3, 4):
+        per = []
+        for s in _k2_shards(t, n_shard):
+            h = tk.probe_hits(s.slots, s.spill, key, srid, first,
+                              row_lo=s.row_lo, **kw)
+            assert torch.equal(h, tk.probe_hits_plain(
+                s.slots, s.spill, key, srid, first, row_lo=s.row_lo, **kw))
+            per.append(h)
+        assert torch.equal(sum(per), got)
+
+
 def test_sharded_pipeline_on_card_matches_device_pipeline(cuda):
     from deacon_tpu_torch.ops.minimizers_np import compute_minimizer_hashes
     from deacon_tpu_torch.parallel.sharded import ShardedPipeline, make_mesh

@@ -3,6 +3,11 @@
 * build_radix_shards for 1-4 shards: the blocks' slots concatenated are
   build_radix_table's slots, with the same p, spill table and sp, for a
   plain and a spilled index.
+* The row order K2's kernel relies on, for build_radix_shards' blocks
+  and for the JAX builder's tables through radix_table_from_jax: each
+  row holds its bucket's keys ascending as u64 in its first slots and
+  values of another bucket after them, and a bucket has spill keys only
+  when its row is full, each above the row's last key.
 * K2's plain version with a row range: the hits of the blocks of a table
   sum to the whole table's hits (spill matches count on one shard only).
 * The port's ShardedPipeline on 2x4 and 4x2 meshes of the CPU against the
@@ -20,6 +25,7 @@ import torch
 
 jax = pytest.importorskip("jax")
 
+from deacon_tpu.ops import radix_probe as jrp  # noqa: E402
 from deacon_tpu.parallel import sharded as jsh  # noqa: E402
 from deacon_tpu_torch.ops import kernels as tk  # noqa: E402
 from deacon_tpu_torch.ops import minimizers_np as mnp  # noqa: E402
@@ -168,6 +174,70 @@ def test_build_radix_shards_concatenate_to_whole_table(n_shard, spilled):
     for a, b in zip(again, shards):
         assert torch.equal(a.slots, b.slots) and a.row_lo == b.row_lo
 
+
+def _row_keys(slots, bits, row_lo=0):
+    """Keys per row of a (rows, 128) slot block of bucket rows row_lo..,
+    after checking the order K2's kernel relies on: a row's keys (slots
+    whose bucket is the row's) fill its first slots, ascending as u64."""
+    s = slots.numpy().view(np.uint64)
+    own = (s >> np.uint64(64 - bits)) == np.arange(
+        row_lo, row_lo + s.shape[0], dtype=np.uint64)[:, None]
+    c = own.sum(axis=1)
+    np.testing.assert_array_equal(own, np.arange(s.shape[1]) < c[:, None])
+    assert ((s[:, 1:] > s[:, :-1]) | ~own[:, 1:]).all()
+    return c
+
+
+def _assert_spill_only_past_full_rows(slots, p, spill, sp, c):
+    """Every spill key's main row is full and holds only smaller keys."""
+    s = slots.numpy().view(np.uint64)
+    sk = spill.numpy().view(np.uint64)
+    sk = sk[(sk >> np.uint64(64 - sp))
+            == np.arange(1 << sp, dtype=np.uint64)[:, None]]
+    b = (sk >> np.uint64(64 - p)).astype(np.int64)
+    assert sk.size > 0
+    assert (c[b] == 128).all() and (sk > s[b, 127]).all()
+
+
+@pytest.mark.parametrize("n_shard", [1, 2, 3, 4])
+@pytest.mark.parametrize("spilled", [False, True])
+def test_build_radix_shards_rows_hold_keys_ascending_then_fillers(
+        n_shard, spilled):
+    rng = np.random.default_rng(70 + n_shard)
+    if spilled:
+        keys, _ = _index_with_spill(rng.choice(_B, 150_000).tobytes())
+    else:
+        keys = np.unique(rng.integers(0, 2**64, 60_000, dtype=np.uint64))
+    shards = trp.build_radix_shards(keys, n_shard, ["cpu"] * n_shard)
+    t = shards[0]
+    c = np.concatenate([_row_keys(x.slots, t.p, x.row_lo) for x in shards])
+    if spilled:
+        n_spill = int(_row_keys(t.spill, t.sp).sum())
+        _assert_spill_only_past_full_rows(
+            torch.cat([x.slots for x in shards]), t.p, t.spill, t.sp, c)
+    else:
+        n_spill = 0
+        assert t.spill is None and (c < 128).all()
+    assert int(c.sum()) + n_spill == keys.size
+
+
+@pytest.mark.parametrize("case", ["small", "plain", "spill"])
+def test_radix_table_from_jax_rows_hold_keys_ascending_then_fillers(case):
+    rng = np.random.default_rng(80)
+    if case == "small":
+        keys = rng.integers(0, 2**64, 40, dtype=np.uint64)
+    elif case == "plain":
+        keys = rng.integers(0, 2**64, 150_000, dtype=np.uint64)
+    else:
+        keys, _ = _index_with_spill(rng.choice(_B, 150_000).tobytes())
+    jt = jrp.build_radix_table(keys)
+    t = trp.radix_table_from_jax(jt.planes, jt.p, jt.k, jt.spill, jt.sp)
+    c = _row_keys(t.slots, t.p)
+    assert (case == "spill") == (t.sp > 0)
+    if t.sp:
+        _row_keys(t.spill, t.sp)
+        _assert_spill_only_past_full_rows(t.slots, t.p, t.spill, t.sp, c)
+    assert t.n_keys == np.unique(keys).size
 
 @pytest.mark.parametrize("n_shard", [1, 2, 3, 4])
 def test_k2_plain_row_ranges_sum_to_whole_table(n_shard):
