@@ -26,9 +26,12 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    hits and totals of every read held against an independent reference
    (searchsorted membership, torch.unique distinct counts, NumPy XXH3).
    The kernels' launch counts are those of this timed window;
-5. K3 (values_select) against its plain version, every output exact, at
-   the three default tiles at k=41, w=15 and one tile each at
-   (k, w) = (56, 9) and (31, 15), with dirty bases, short and unused rows;
+5. K3 (values_select) against its plain version, exact (row totals and
+   every live slot's pos, lo and hi), at the three default tiles at
+   k=41, w=15 and one tile each at (k, w) = (56, 9), (57, 15) at
+   L = 16384 and (31, 15), with dirty bases, short and unused rows;
+   device times (CUDA-graph replay) beside call_ms, the bound of the slot
+   grid and the dense planes' bound (bound_dense_ms);
 6. phase 3 at k=41, w=15 (the wide-k path, K3): ``index build`` with and
    without -e 0.5 on a multi-record FASTA with N runs, IUPAC codes and
    lowercase, on the card and on the CPU, byte-identical to each other
@@ -87,9 +90,13 @@ the same for K2: phases 0 and 1, then phase 4's table and main-path
 stream (K2 whole and its S = 4 and S = 3 launches, as in phase 13), a
 repeat-heavy stream (one read holding most member keys, beside the same
 keys spread over reads) and phase 2's stream, each exact against the
-plain version, by device time and call_ms. Copied into a checkout of an
-earlier commit and run there, either times that commit's kernel by the
-same measures.
+plain version, by device time and call_ms. ``python3 chip_smoke.py
+--k3`` runs phases 0 and 1, then ``engine.select_slots(...,
+route="K3")`` (K3 with whatever compaction the tree runs after it) on
+phase 5's tiles, each exact against compact_rows over the dense planes
+of values_select_plain, by device time and call_ms. Copied into a
+checkout of an earlier commit and run there, each times that commit's
+kernel (or route) by the same measures.
 
 Every temporary file lives in a tempfile directory outside the checkout
 and is deleted; nothing is left running. Exits non-zero, printing no
@@ -122,7 +129,7 @@ from deacon_tpu_torch.io import zstd
 from deacon_tpu_torch.io.fastx import open_maybe_compressed
 from deacon_tpu_torch.ops import _build
 from deacon_tpu_torch.ops import kernels as K
-from deacon_tpu_torch.ops.engine import DevicePipeline
+from deacon_tpu_torch.ops.engine import DevicePipeline, select_slots
 from deacon_tpu_torch.ops.hash import lsr, xxh3_64
 from deacon_tpu_torch.ops.minimizers_np import get_minimizer_hashes_and_positions
 from deacon_tpu_torch.ops.pack import (
@@ -458,51 +465,131 @@ def parity_tile(rng, k: int, w: int, L: int, R: int):
     return [torch.from_numpy(a).to("cuda") for a in arrs[:4]]
 
 
+#: K3's tiles: the three default tiles at k=41, w=15, then (56, 9),
+#: k = 57 at the longest row and K3 at k <= 32 (K1's 64-bit values)
+K3_TILES = [(K_WIDE, W_, L, R) for L, R in DevicePipeline.DEFAULT_TILES] + [
+    (56, 9, 2048, 2048), (57, 15, 16384, 512), (31, 15, 2048, 2048)]
+
+
+def slot_mismatches(got, want, Br: int, what: str) -> int:
+    """Compare two slot grids ((R, Br) positions, value planes, (R,)
+    totals): totals exactly, then every live slot; raises on a difference
+    and returns the live slot count."""
+    pos, planes, tot = got
+    wpos, wplanes, wtot = want
+    torch.cuda.synchronize()
+    if not torch.equal(tot, wtot):
+        raise AssertionError(f"{what}: row totals differ")
+    live = (torch.arange(Br, device=tot.device)[None, :]
+            < torch.clamp(tot, max=Br)[:, None])
+    if len(planes) != len(wplanes):
+        raise AssertionError(f"{what}: {len(planes)} value planes, "
+                             f"want {len(wplanes)}")
+    bad = int((pos[live] != wpos[live]).sum()) + sum(
+        int((g[live] != x[live]).sum()) for g, x in zip(planes, wplanes))
+    if bad:
+        raise AssertionError(f"{what}: {bad} slot entries differ")
+    return int(live.sum())
+
+
+def dense_k3_slots(pc, pv, mlen, allow, *, k: int, w: int, Br: int):
+    """The parent's K3 route by its own plain parts: compact_rows over the
+    dense planes of values_select_plain (interfaces older trees have)."""
+    lo, hi, wpf = K.values_select_plain(pc, pv, mlen, allow, k=k, w=w)
+    return K.compact_rows((wpf >> 16) != 0, wpf & 0xFFFF,
+                          [lo, hi] if k > 32 else [lo], Br)
+
+
+def k3_bounds(k: int, L: int, R: int, slots: int):
+    """K3's bound for the slot grid it writes: R * (L/4 + L/8 + 9) bytes
+    (packed codes and validity, mlen, allow, the row total) plus 20 bytes
+    a live slot (pos, lo, hi; 12 at k <= 32), against ~80 int32
+    operations a base at k > 32 (two 128-bit strands sliced from a
+    192-bit window, their compare, the fold and fmix32, validity, the
+    van Herk minimum, flag and scan) or K1's ~40 at k <= 32, whichever is
+    larger; and the figure of the dense planes it used to write (20 bytes
+    a base). Returns (bound_ms, bound_by, bytes, bound_dense_ms)."""
+    nbytes = R * (L // 4 + L // 8 + 9) + slots * (20 if k > 32 else 12)
+    ops = R * L * (80.0 if k > 32 else 40.0)
+    b, by = bound_ms(nbytes, ops)
+    dense, _ = bound_ms(R * (L // 4 + L // 8 + 5) + R * L * 20, R * L * 80.0)
+    return b, by, nbytes, dense
+
+
 def phase5_k3(rng) -> dict:
-    """K3 against its plain version: the three default tiles at k=41,
-    w=15 (summed for the kernel table), then one tile each at (56, 9)
-    and (31, 15). 1 row in 16 of each tile is unused (mlen -1). Every
-    output plane must be equal everywhere. Bound: ~20.4 bytes per base
-    (packed input read once, two 8-byte value planes and the 4-byte wpf
-    written once) or ~80 int32 operations per base (128-bit values,
-    key, window minimum, validity, flag), whichever is larger."""
+    """K3 against its plain version, exact: row totals and every live
+    slot's pos, lo and hi, on K3_TILES (the three k=41 default tiles summed
+    for the kernel table). 1 row in 16 of each tile is unused (mlen -1).
+    ms: device time (CUDA-graph replay); call_ms: events around wrapper
+    calls, the measure of earlier runs; the bound of k3_bounds."""
     t0 = time.perf_counter()
-    k3 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
-          "tiles": []}
-    cases = [(K_WIDE, W_, L, R) for L, R in DevicePipeline.DEFAULT_TILES]
-    cases += [(56, 9, 2048, 2048), (31, 15, 2048, 2048)]
-    for k, w, L, R in cases:
+    k3 = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+          "bound_dense_ms": 0.0, "max_abs_err": 0, "tiles": []}
+    for k, w, L, R in K3_TILES:
+        Br = v4_row_budget(L, w, default_budget_frac(w))
         pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
 
         def kern():
-            return K.values_select(pc, pv, mlen, allow, k=k, w=w)
+            return K.values_select(pc, pv, mlen, allow, k=k, w=w, Br=Br)
 
         def plain():
-            return K.values_select_plain(pc, pv, mlen, allow, k=k, w=w)
+            return K.values_select_compact_plain(pc, pv, mlen, allow, k=k,
+                                                 w=w, Br=Br)
 
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        bad = sum(int((g != p_).sum()) for g, p_ in zip(got, want))
-        if bad:
-            raise AssertionError(
-                f"K3 differs from its plain version at {bad} entries, "
-                f"(k, w, L, R) = {(k, w, L, R)}")
-        flagged = int((got[2] >> 16).sum())
-        ms = time_ms(kern, 20)
+        (pos, lo, hi, tot), (ppos, plo, phi, ptot) = kern(), plain()
+        slots = slot_mismatches(
+            (pos, [lo] if hi is None else [lo, hi], tot),
+            (ppos, [plo] if phi is None else [plo, phi], ptot), Br,
+            f"K3 at (k, w, L, R) = {(k, w, L, R)}")
+        ms = graph_ms(kern)
+        call_ms = time_ms(kern, 20)
         pms = time_ms(plain, 3, warm=1)
-        nbytes = R * (L // 4 + L // 8 + 4 + 1) + R * L * 20
-        b, by = bound_ms(nbytes, R * L * 80.0)
+        b, by, nbytes, dense = k3_bounds(k, L, R, slots)
         if k == K_WIDE:
             k3["ms"] += ms
+            k3["call_ms"] += call_ms
             k3["plain_ms"] += pms
             k3["bound_ms"] += b
+            k3["bound_dense_ms"] += dense
             k3["bound_by"] = by
-        k3["tiles"].append({"k": k, "w": w, "L": L, "R": R,
-                            "ms": round(ms, 4), "plain_ms": round(pms, 3),
-                            "bytes": nbytes, "bound_ms": round(b, 5),
-                            "bound_by": by, "flagged": flagged})
+        k3["tiles"].append({"k": k, "w": w, "L": L, "R": R, "Br": Br,
+                            "ms": round(ms, 4), "call_ms": round(call_ms, 4),
+                            "plain_ms": round(pms, 3), "bytes": nbytes,
+                            "bound_ms": round(b, 5), "bound_by": by,
+                            "bound_dense_ms": round(dense, 5),
+                            "ratio_to_bound": round(ms / b, 2),
+                            "slots": slots,
+                            "overflow_rows": int((tot > Br).sum())})
     log("5 K3 parity", t0, k3=json.dumps(k3["tiles"]))
     return k3
+
+
+def k3_alone(rng) -> dict:
+    """``--k3``: engine.select_slots on the K3 route (the kernel and,
+    where a tree has it, the torch compaction after it) on K3_TILES, exact
+    against dense_k3_slots, by device time (CUDA-graph replay) and
+    call_ms; ms and call_ms sum the three k=41 default tiles."""
+    out = {"ms": 0.0, "call_ms": 0.0, "max_abs_err": 0, "tiles": []}
+    for k, w, L, R in K3_TILES:
+        Br = v4_row_budget(L, w, default_budget_frac(w))
+        pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
+
+        def route():
+            return select_slots(pc, pv, mlen, allow, k=k, w=w, Br=Br,
+                                route="K3")
+
+        slots = slot_mismatches(
+            route(), dense_k3_slots(pc, pv, mlen, allow, k=k, w=w, Br=Br),
+            Br, f"select_slots K3 at (k, w, L, R) = {(k, w, L, R)}")
+        ms = graph_ms(route)
+        call_ms = time_ms(route, 20)
+        if k == K_WIDE:
+            out["ms"] += ms
+            out["call_ms"] += call_ms
+        out["tiles"].append({"k": k, "w": w, "L": L, "R": R, "Br": Br,
+                             "ms": round(ms, 4),
+                             "call_ms": round(call_ms, 4), "slots": slots})
+    return out
 
 
 def phase9_k4(rng) -> dict:
@@ -1830,6 +1917,12 @@ def main() -> int:
                for n in ("S4", "S3")},
             "repeat_heavy": k2["repeat_heavy"]}), flush=True)
         return 0
+    if sys.argv[1:] == ["--k3"]:
+        t0 = time.perf_counter()
+        k3 = k3_alone(rng)
+        log("5 K3 route alone", t0, k3=json.dumps(k3["tiles"]))
+        print(json.dumps(k3), flush=True)
+        return 0
     if sys.argv[1:] == ["--k1"]:
         t0 = time.perf_counter()
         k1 = k1_tiles(rng)
@@ -1883,7 +1976,10 @@ def main() -> int:
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
-         "shapes": "sum over the three default tiles at k=41, w=15"},
+         "call_ms": k3["call_ms"], "bound_dense_ms": k3["bound_dense_ms"],
+         "shapes": "sum over the three default tiles at k=41, w=15; ms by "
+                   "CUDA-graph replay, call_ms around wrapper calls; "
+                   "bound_dense_ms: the dense planes' bound"},
         {"name": "K4 select_csum", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/select_csum.cu",
          "replaces": "deacon_tpu/ops/pallas_kernels.py:494",

@@ -132,7 +132,7 @@ def library() -> ctypes.CDLL:
         ]
         lib.dx_radix_probe.restype = i32
         lib.dx_values_select.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp,
+            vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp,
         ]
         lib.dx_values_select.restype = i32
         lib.dx_select_csum.argtypes = [

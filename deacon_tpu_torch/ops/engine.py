@@ -17,13 +17,13 @@ One engine step per batch of rows of a tile (L, R), all on the device:
      per-row searchsorted finds each slot's window and the canonical
      value at its wp is rebuilt from the packed codes (csum_slots);
    * "K3" (arch 2: k > 32, R % 8 != 0 or DEACON_ENGINE=2): K3
-     (ops/kernels.values_select, csrc/values_select.cu) writes dense
-     value planes and the packed argmin word, and kernels.compact_rows
-     compacts the flagged windows into the slot grid;
+     (ops/kernels.values_select, csrc/values_select.cu) does K1's work
+     for k <= 57, with 128-bit values above k = 32, in one kernel;
    * "K5" (DEACON_PALLAS=1, k <= 56, on any tile): K5
      (ops/kernels.values_argmin, csrc/values_argmin.cu) writes the value
      at every column and wp, kernels.flag_mask flags the windows, the
-     values are gathered at wp and compacted as after K3;
+     values are gathered at wp and kernels.compact_rows compacts the
+     flagged windows into the slot grid;
 2. XXH3-64 of every slot's value, 8 or 16 bytes (ops/hash.py);
 3. the probe stream sorted by (hash, read) and K2
    (ops/kernels.probe_hits, csrc/radix_probe.cu) against the step's
@@ -225,10 +225,9 @@ def select_slots(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int,
         at_wp = wp.to(torch.int64)
         planes = [p.gather(1, at_wp) for p in planes]
         return compact_rows(flag, wp, planes, Br)
-    lo, hi, wpf = values_select(pc, pv, mlen, allow_short, k=k, w=w)
-    # the dense planes are dropped as soon as the slot grid holds them
-    return compact_rows((wpf >> 16) != 0, wpf & 0xFFFF,
-                        [lo, hi] if k > 32 else [lo], Br)
+    pos, lo, hi, tot = values_select(pc, pv, mlen, allow_short, k=k, w=w,
+                                     Br=Br)
+    return pos, [lo] if hi is None else [lo, hi], tot
 
 
 def hash_planes(planes: list[torch.Tensor]) -> torch.Tensor:
@@ -605,7 +604,8 @@ def extract_step(pc, pv, mlen, allow_short, keep_table, *, k: int, w: int,
     lane = torch.arange(Br, dtype=torch.int32, device=pc.device)
     valid = lane[None, :] < torch.clamp(rt, max=Br)[:, None]
     if keep_table is not None:
-        valid &= entropy_keep(pc, pos, keep_table, k)
+        # slots past a row's total hold unspecified positions: read at 0
+        valid &= entropy_keep(pc, torch.where(valid, pos, 0), keep_table, k)
     return hash_planes(planes), valid, rt
 
 

@@ -3,12 +3,15 @@
 * K1 ``select_compact`` (csrc/extract.cu) replaces the TPU kernel
   ``select_compact_packed`` (deacon_tpu/ops/pallas_kernels.py): O(1)
   work per base on the card (k-mers sliced from the packed words, a
-  van Herk / Gil-Werman window minimum, one scan per row).
+  van Herk / Gil-Werman window minimum, one scan per row;
+  csrc/select_rows.cuh).
 * K2 ``probe_hits`` (csrc/radix_probe.cu) replaces the TPU kernel
   ``radix_probe_hits`` (deacon_tpu/ops/radix_probe.py), whole-table and
   sharded (a block of bucket rows, ``row_lo``).
 * K3 ``values_select`` (csrc/values_select.cu) replaces the TPU kernel
-  ``values_select_fused`` (deacon_tpu/ops/pallas_kernels.py).
+  ``values_select_fused`` (deacon_tpu/ops/pallas_kernels.py) and the
+  compaction after it: K1's design and slot grid for k <= 57, with
+  128-bit values (csrc/select_rows.cuh, shared with K1).
 * K4 ``select_csum`` (csrc/select_csum.cu) replaces the TPU kernel
   ``select_csum_packed`` (deacon_tpu/ops/pallas_kernels.py).
 * K5 ``values_argmin`` (csrc/values_argmin.cu) replaces the TPU kernel
@@ -294,11 +297,11 @@ select_compact.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: wide-k selection (dense value planes)
+# K3: wide-k selection into the slot grid
 # ---------------------------------------------------------------------------
 
 def values_select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
-    """Plain PyTorch version of K3 (the same function as the kernel).
+    """The JAX package's values_select_fused in plain PyTorch, dense.
 
     Inputs as select_compact_plain. Returns three dense (R, L) planes: the
     low and high 64 bits (int64) of the canonical value of the k-mer
@@ -312,27 +315,48 @@ def values_select_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
     return lo, hi, wpf
 
 
-def values_select(pc, pv, mlen, allow_short, *, k: int, w: int):
-    """K3 wrapper: same arguments and results as values_select_plain.
-    Constraints: 1 <= k <= 57, 128 | L <= 16384."""
+def values_select_compact_plain(pc, pv, mlen, allow_short, *, k: int,
+                                w: int, Br: int):
+    """Plain PyTorch version of K3 (the same function as the kernel):
+    values_select_plain's flagged windows compacted into the slot grid
+    (compact_rows). Returns ((R, Br) int32 positions, (R, Br) int64 low
+    halves, (R, Br) int64 high halves or None for k <= 32, (R,) int32 row
+    totals); slots at or past a row's total hold zeros here and are
+    unspecified in general."""
+    lo, hi, wpf = values_select_plain(pc, pv, mlen, allow_short, k=k, w=w)
+    pos, planes, tot = compact_rows((wpf >> 16) != 0, wpf & 0xFFFF,
+                                    [lo, hi] if k > 32 else [lo], Br)
+    return pos, planes[0], planes[1] if k > 32 else None, tot
+
+
+def values_select(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
+    """K3 wrapper: same arguments and results as
+    values_select_compact_plain. Constraints: 1 <= k <= 57,
+    128 | L <= 16384, 128 | Br <= L."""
     R, L, dev = _check_tile("values_select", pc, pv, mlen, allow_short, k,
                             w, 57)
+    if Br % 128 or not 0 < Br <= L:
+        raise ValueError(f"values_select: bad tile L={L}, Br={Br}")
     if dev.type == "cpu":
-        return values_select_plain(pc, pv, mlen, allow_short, k=k, w=w)
+        return values_select_compact_plain(pc, pv, mlen, allow_short, k=k,
+                                           w=w, Br=Br)
     from . import _build
 
     lib = _build.library()
-    lo = torch.empty((R, L), dtype=torch.int64, device=dev)
-    hi = torch.empty((R, L), dtype=torch.int64, device=dev)
-    wpf = torch.empty((R, L), dtype=torch.int32, device=dev)
+    pos = torch.empty((R, Br), dtype=torch.int32, device=dev)
+    lo = torch.empty((R, Br), dtype=torch.int64, device=dev)
+    hi = (torch.empty((R, Br), dtype=torch.int64, device=dev) if k > 32
+          else None)
+    tot = torch.empty((R,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.dx_values_select(
-            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(lo),
-            _ptr(hi), _ptr(wpf), R, L, k, w, _stream(dev),
+            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(pos),
+            _ptr(lo), _ptr(hi) if hi is not None else None, _ptr(tot), R, L,
+            k, w, Br, _stream(dev),
         )
     _build.check(err, "values_select launch")
     values_select.launches += 1
-    return lo, hi, wpf
+    return pos, lo, hi, tot
 
 
 values_select.launches = 0

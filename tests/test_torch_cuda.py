@@ -126,18 +126,69 @@ def test_k1_kernel_unaligned_inputs_match_plain(cuda):
         assert torch.equal(g[live], x[live])
 
 
-@pytest.mark.parametrize("k,w,L,R", [(41, 15, 256, 64), (56, 9, 2048, 16),
-                                     (57, 15, 16384, 8), (31, 15, 2048, 16),
-                                     (41, 15, 16384, 512)])
-def test_k3_kernel_matches_plain(cuda, k, w, L, R):
+def _k3_check(got, want, Br):
+    """K3's slot grid against its plain version's: totals exactly, and
+    every live slot's position and value halves exactly."""
+    pos, lo, hi, tot = got
+    ppos, plo, phi, ptot = want
+    assert torch.equal(tot, ptot)
+    assert (hi is None) == (phi is None)
+    live = (torch.arange(Br, device=tot.device)[None, :]
+            < tot.clamp(max=Br)[:, None])
+    assert torch.equal(pos[live], ppos[live])
+    assert torch.equal(lo[live], plo[live])
+    if hi is not None:
+        assert torch.equal(hi[live], phi[live])
+    assert int(tot.sum()) > 0
+
+
+@pytest.mark.parametrize("k,w,L,R,Br,edge", [
+    (41, 15, 256, 64, None, False), (56, 9, 2048, 16, None, False),
+    (57, 15, 16384, 8, None, False), (31, 15, 2048, 16, None, False),
+    (41, 15, 16384, 512, None, False),
+    # k at the 64-bit/128-bit edge and at the top, with the edge rows
+    (33, 15, 256, 16, None, True), (56, 15, 1152, 8, None, True),
+    (57, 9, 384, 8, None, True), (32, 15, 256, 16, None, True),
+    # w = 1: every column selected, totals past Br
+    (41, 1, 256, 16, None, True), (57, 1, 2048, 8, 128, True),
+    (21, 1, 1152, 8, None, True),
+    # L = 128 and 16384; R not a multiple of 8; Br = 128 and Br = L
+    (33, 7, 128, 8, 128, True), (57, 63, 128, 9, None, True),
+    (41, 15, 128, 5, 128, True), (56, 33, 4096, 13, 4096, True),
+    (41, 15, 16384, 3, 16384, True), (57, 15, 16384, 8, 128, True),
+    (21, 11, 16384, 5, None, True), (45, 20, 640, 7, 128, True),
+])
+def test_k3_kernel_matches_plain(cuda, k, w, L, R, Br, edge):
     rng = np.random.default_rng(k + w + L + 1)
-    args = [a.to(cuda) for a in _tile(rng, R, L, k, w)]
-    got = tk.values_select(*args, k=k, w=w)
-    want = tk.values_select_plain(*args, k=k, w=w)
+    if Br is None:
+        Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
+    args = [a.to(cuda) for a in _tile(rng, R, L, k, w, edge=edge)]
+    got = tk.values_select(*args, k=k, w=w, Br=Br)
+    want = tk.values_select_compact_plain(*args, k=k, w=w, Br=Br)
     torch.cuda.synchronize()
-    for g, w_ in zip(got, want):
-        assert torch.equal(g, w_)
-    assert int((got[2] >> 16).sum()) > 0
+    _k3_check(got, want, Br)
+    if edge and Br < L:
+        assert bool((got[3] > Br).any())  # the homopolymer row overflows
+
+
+@pytest.mark.parametrize("k", [31, 41, 57])
+def test_k3_kernel_unaligned_inputs_match_plain(cuda, k):
+    """Packed inputs that do not start on a 16-byte boundary take the
+    kernel's byte-wise staging path."""
+    w, L, R = 15, 256, 16
+    rng = np.random.default_rng(k + 6)
+    Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
+    pc, pv, mlen, allow = [a.to(cuda) for a in
+                           _tile(rng, R, L, k, w, edge=True)]
+    pcu = torch.empty(pc.numel() + 1, dtype=torch.uint8, device=cuda)
+    pvu = torch.empty(pv.numel() + 1, dtype=torch.uint8, device=cuda)
+    pcu = pcu[1:].view(pc.shape).copy_(pc)
+    pvu = pvu[1:].view(pv.shape).copy_(pv)
+    got = tk.values_select(pcu, pvu, mlen, allow, k=k, w=w, Br=Br)
+    want = tk.values_select_compact_plain(pc, pv, mlen, allow, k=k, w=w,
+                                          Br=Br)
+    torch.cuda.synchronize()
+    _k3_check(got, want, Br)
 
 
 @pytest.mark.parametrize("k,w,L,R", [(31, 15, 384, 4096), (31, 15, 1152, 64),

@@ -242,7 +242,7 @@ def test_k3_plain_matches_pallas_interpret(k, w):
         jnp.asarray(allow), k=k, w=w, interpret=True,
     )
     pc, pv = jeng.host_pack_bits(codes, validb)
-    lo, hi, wpf = tk.values_select(
+    lo, hi, wpf = tk.values_select_plain(
         torch.from_numpy(pc), torch.from_numpy(pv), torch.from_numpy(mlen),
         torch.from_numpy(allow), k=k, w=w,
     )
@@ -255,6 +255,127 @@ def test_k3_plain_matches_pallas_interpret(k, w):
         _u64(lo)[flagged], (v[0] | (v[1] << np.uint64(32)))[flagged])
     want_hi = (v[2] | (v[3] << np.uint64(32))) if k > 32 else 0 * v[0]
     np.testing.assert_array_equal(_u64(hi)[flagged], want_hi[flagged])
+
+
+def _k3_edge_tile(k, w):
+    """_k3_tile with k1_edge_rows appended (24 rows of 640 bases)."""
+    tile = _k3_tile(k, w)
+    edge = k1_edge_rows(np.random.default_rng(k + w), 640, k, w)
+    return [np.concatenate([a, e]) for a, e in zip(tile, edge)]
+
+
+def _compact_dense_np(wpf, planes, Br):
+    """The dense planes' flagged windows compacted in column order, in
+    numpy: (positions, [planes], totals), slots past a total zero."""
+    R = wpf.shape[0]
+    pos = np.zeros((R, Br), np.int64)
+    out = [np.zeros((R, Br), np.uint64) for _ in planes]
+    tot = np.zeros(R, np.int64)
+    for r in range(R):
+        cols = np.nonzero((wpf[r] >> 16) != 0)[0]
+        tot[r] = cols.size
+        cols = cols[:Br]
+        pos[r, :cols.size] = wpf[r, cols] & 0xFFFF
+        for o, x in zip(out, planes):
+            o[r, :cols.size] = x[r, cols]
+    return pos, out, tot
+
+
+@pytest.mark.parametrize("k,w", [(33, 15), (41, 15), (56, 9), (56, 1),
+                                 (21, 7)])
+def test_k3_compact_plain_matches_pallas_interpret(k, w):
+    """K3's plain version (the slot grid) equals the JAX
+    values_select_fused's dense output compacted in numpy: totals, and
+    every live slot's position and value halves, rows past Br included."""
+    codes, validb, mlen, allow = _k3_edge_tile(k, w)
+    want_v, want_wpf = jpk.values_select_fused(
+        jnp.asarray(codes), jnp.asarray(validb), jnp.asarray(mlen),
+        jnp.asarray(allow), k=k, w=w, interpret=True,
+    )
+    v = [np.asarray(x).astype(np.uint64) for x in want_v]
+    planes = [v[0] | (v[1] << np.uint64(32))]
+    if k > 32:
+        planes.append(v[2] | (v[3] << np.uint64(32)))
+    Br = 256
+    want_pos, want_planes, want_tot = _compact_dense_np(
+        np.asarray(want_wpf), planes, Br)
+    pc, pv = jeng.host_pack_bits(codes, validb)
+    pos, lo, hi, tot = tk.values_select_compact_plain(
+        torch.from_numpy(pc), torch.from_numpy(pv), torch.from_numpy(mlen),
+        torch.from_numpy(allow), k=k, w=w, Br=Br,
+    )
+    assert (hi is None) == (k <= 32)
+    np.testing.assert_array_equal(tot.numpy(), want_tot)
+    assert int((want_tot > Br).sum()) > 0
+    live = np.arange(Br)[None, :] < np.minimum(want_tot, Br)[:, None]
+    np.testing.assert_array_equal(pos.numpy()[live], want_pos[live])
+    for got, want in zip([lo] if hi is None else [lo, hi], want_planes):
+        np.testing.assert_array_equal(_u64(got)[live], want[live])
+
+
+@pytest.mark.parametrize("k,w,Br", [(31, 15, 128), (41, 15, 256),
+                                    (57, 1, 640)])
+def test_k3_select_slots_matches_dense_compaction(k, w, Br):
+    """select_slots on the K3 route, on the CPU, equals compact_rows over
+    the dense planes of values_select_plain."""
+    codes, validb, mlen, allow = _k3_edge_tile(k, w)
+    pc, pv = jeng.host_pack_bits(codes, validb)
+    args = [torch.from_numpy(a) for a in (pc, pv, mlen, allow)]
+    pos, planes, tot = teng.select_slots(*args, k=k, w=w, Br=Br, route="K3")
+    lo, hi, wpf = tk.values_select_plain(*args, k=k, w=w)
+    wpos, wplanes, wtot = tk.compact_rows(
+        (wpf >> 16) != 0, wpf & 0xFFFF, [lo, hi] if k > 32 else [lo], Br)
+    assert torch.equal(tot, wtot) and int(tot.sum()) > 0
+    live = torch.arange(Br)[None, :] < tot.clamp(max=Br)[:, None]
+    assert torch.equal(pos[live], wpos[live])
+    assert len(planes) == len(wplanes) == (2 if k > 32 else 1)
+    for g, w_ in zip(planes, wplanes):
+        assert torch.equal(g[live], w_[live])
+
+
+@pytest.mark.parametrize("case", ["Br=0", "Br=100", "Br>L", "k=58", "k=0",
+                                  "shape", "meta"])
+def test_k3_wrapper_rejects_bad_input(case):
+    pc = torch.zeros((8, 64), dtype=torch.uint8)
+    pv = torch.zeros((8, 32), dtype=torch.uint8)
+    mlen = torch.zeros(8, dtype=torch.int32)
+    allow = torch.zeros(8, dtype=torch.bool)
+    kw = {"k": 41, "w": 15, "Br": 128}
+    if case.startswith("Br"):
+        kw["Br"] = {"Br=0": 0, "Br=100": 100, "Br>L": 384}[case]
+    elif case.startswith("k="):
+        kw["k"] = int(case[2:])
+    elif case == "shape":
+        pv = pv[:, :20]
+    else:
+        pc, pv, mlen, allow = (t.to("meta") for t in (pc, pv, mlen, allow))
+    with pytest.raises(ValueError):
+        tk.values_select(pc, pv, mlen, allow, **kw)
+
+
+@pytest.mark.parametrize("route,k", [("K1", 31), ("K3", 31), ("K3", 41)])
+def test_extract_step_ignores_dead_slot_positions(monkeypatch, route, k):
+    """Slots at or past a row's total are unspecified (the kernels leave
+    them as they were): the index build's entropy filter reads no
+    position there, so out-of-range garbage changes nothing."""
+    w, Br = 15, 256
+    codes, validb, mlen, allow = _k3_edge_tile(k, w)
+    pc, pv = jeng.host_pack_bits(codes, validb)
+    args = [torch.from_numpy(a) for a in (pc, pv, mlen, allow)]
+    keep = torch.from_numpy(teng.entropy_keep_table(k, 0.5))
+    want = teng.extract_step(*args, keep, k=k, w=w, Br=Br, route=route)
+    real = teng.select_slots
+
+    def garbage(*a, **kw):
+        pos, planes, tot = real(*a, **kw)
+        live = torch.arange(Br)[None, :] < tot.clamp(max=Br)[:, None]
+        return torch.where(live, pos, 1 << 30), planes, tot
+
+    monkeypatch.setattr(teng, "select_slots", garbage)
+    got = teng.extract_step(*args, keep, k=k, w=w, Br=Br, route=route)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[0][got[1]], want[0][want[1]])
+    assert 0 < int(want[1].sum()) < int(got[2].clamp(max=Br).sum())
 
 
 @pytest.mark.parametrize("k,w", [(41, 15), (57, 9)])
@@ -542,12 +663,13 @@ def test_wrappers_reject_bad_input_and_other_devices():
         tk.select_compact(pc.to("meta"), pv.to("meta"), mlen.to("meta"),
                           allow.to("meta"), k=31, w=15, Br=128)
     with pytest.raises(ValueError):
-        tk.values_select(pc, pv, mlen, allow, k=58, w=15)
+        tk.values_select(pc, pv, mlen, allow, k=58, w=15, Br=128)
     with pytest.raises(ValueError):
-        tk.values_select(pc[:, :40], pv[:, :20], mlen, allow, k=41, w=15)
+        tk.values_select(pc[:, :40], pv[:, :20], mlen, allow, k=41, w=15,
+                         Br=128)
     with pytest.raises(ValueError):
         tk.values_select(pc.to("meta"), pv.to("meta"), mlen.to("meta"),
-                         allow.to("meta"), k=41, w=15)
+                         allow.to("meta"), k=41, w=15, Br=128)
     t = trp.build_radix_table(torch.arange(100, dtype=torch.int64))
     q = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
