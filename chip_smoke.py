@@ -31,7 +31,7 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    k=41, w=15 and one tile each at (k, w) = (56, 9), (57, 15) at
    L = 16384 and (31, 15), with dirty bases, short and unused rows;
    device times (CUDA-graph replay) beside call_ms, the bound of the slot
-   grid and the dense planes' bound (bound_dense_ms);
+   grid (grid_bound) and the dense planes' bound (bound_dense_ms);
 6. phase 3 at k=41, w=15 (the wide-k path, K3): ``index build`` with and
    without -e 0.5 on a multi-record FASTA with N runs, IUPAC codes and
    lowercase, on the card and on the CPU, byte-identical to each other
@@ -45,11 +45,15 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    ``index build`` on the card at k=31 (K1) and k=41 (K3), with Mbp/s;
    both indexes byte-identical to the oracle's over the records the
    oracle (six worker processes) finishes within its time limit;
-9. K4 (select_csum) against its plain version, every output exact, at
-   the tiles (384, 4096), (1152, 2048), (12288, 512) at k=31, w=15 and
-   (1152, 2048) at (15, 5), dirty, short and unused rows;
-10. K5 (values_argmin) against its plain version, every output exact, at
-   the three default tiles at k=31 and k=41, and (2048, 2048) at (56, 9);
+9. K4 (select_csum) against its plain version (the slot grid of
+   select_csum_slots_plain), exact as in phase 5, at the tiles
+   (384, 4096), (1152, 2048), (12288, 512) at k=31, w=15 and
+   (1152, 2048) at (15, 5), dirty, short and unused rows; times and
+   bounds as in phase 5;
+10. K5 (values_argmin) against its plain version (the slot grid of
+   values_argmin_slots_plain), exact as in phase 5, at the three default
+   tiles at k=31 and k=41, and (2048, 2048) at (56, 9); times and bounds
+   as in phase 5;
 11. the CLI under the engine's switches, card against CPU, byte for
    byte: ``index build`` under DEACON_PALLAS=1 at k=31 and 41 against the
    oracle's index (K5 only), ``filter`` single and paired under
@@ -92,10 +96,14 @@ repeat-heavy stream (one read holding most member keys, beside the same
 keys spread over reads) and phase 2's stream, each exact against the
 plain version, by device time and call_ms. ``python3 chip_smoke.py
 --k3`` runs phases 0 and 1, then ``engine.select_slots(...,
-route="K3")`` (K3 with whatever compaction the tree runs after it) on
-phase 5's tiles, each exact against compact_rows over the dense planes
-of values_select_plain, by device time and call_ms. Copied into a
-checkout of an earlier commit and run there, each times that commit's
+route="K3")`` (K3 with whatever torch work the tree runs after it) on
+phase 5's tiles, each exact against the dense route built from plain
+parts (compact_rows over the dense planes of values_select_plain), by
+device time and call_ms. ``--k4`` does the same for the K4 route on
+phase 9's tiles (against csum_slots over select_csum_plain's plane) and
+``--k5`` for the K5 route on phase 10's (against compact_rows over
+flag_mask and values_argmin_plain's planes gathered at wp). Copied into
+a checkout of an earlier commit and run there, each times that commit's
 kernel (or route) by the same measures.
 
 Every temporary file lives in a tempfile directory outside the checkout
@@ -492,201 +500,195 @@ def slot_mismatches(got, want, Br: int, what: str) -> int:
     return int(live.sum())
 
 
+def as_grid(out):
+    """A wrapper's (pos, val, tot) or (pos, lo, hi, tot) as select_slots'
+    (pos, [planes], tot)."""
+    if len(out) == 3:
+        return out[0], [out[1]], out[2]
+    pos, lo, hi, tot = out
+    return pos, [lo] if hi is None else [lo, hi], tot
+
+
 def dense_k3_slots(pc, pv, mlen, allow, *, k: int, w: int, Br: int):
-    """The parent's K3 route by its own plain parts: compact_rows over the
+    """The dense K3 route by its own plain parts: compact_rows over the
     dense planes of values_select_plain (interfaces older trees have)."""
     lo, hi, wpf = K.values_select_plain(pc, pv, mlen, allow, k=k, w=w)
     return K.compact_rows((wpf >> 16) != 0, wpf & 0xFFFF,
                           [lo, hi] if k > 32 else [lo], Br)
 
 
-def k3_bounds(k: int, L: int, R: int, slots: int):
-    """K3's bound for the slot grid it writes: R * (L/4 + L/8 + 9) bytes
-    (packed codes and validity, mlen, allow, the row total) plus 20 bytes
-    a live slot (pos, lo, hi; 12 at k <= 32), against ~80 int32
-    operations a base at k > 32 (two 128-bit strands sliced from a
-    192-bit window, their compare, the fold and fmix32, validity, the
-    van Herk minimum, flag and scan) or K1's ~40 at k <= 32, whichever is
-    larger; and the figure of the dense planes it used to write (20 bytes
-    a base). Returns (bound_ms, bound_by, bytes, bound_dense_ms)."""
+def dense_k4_slots(pc, pv, mlen, allow, *, k: int, w: int, Br: int):
+    """The dense K4 route by its own plain parts: csum_slots over
+    select_csum_plain's plane (older trees keep csum_slots in
+    ops/engine.py)."""
+    from deacon_tpu_torch.ops import engine
+
+    csum_slots = getattr(K, "csum_slots", None) or engine.csum_slots
+    plane, tot = K.select_csum_plain(pc, pv, mlen, allow, k=k, w=w)
+    return csum_slots(pc, plane, tot, k=k, Br=Br)
+
+
+def dense_k5_slots(pc, pv, mlen, allow, *, k: int, w: int, Br: int):
+    """The dense K5 route by its own plain parts: compact_rows over
+    flag_mask and over values_argmin_plain's planes gathered at wp."""
+    planes, wp = K.values_argmin_plain(pc, mlen, k=k, w=w)
+    flag = K.flag_mask(wp, pv, mlen, allow, k=k, w=w)
+    at_wp = wp.to(torch.int64)
+    return K.compact_rows(flag, wp, [p.gather(1, at_wp) for p in planes],
+                          Br)
+
+
+def grid_bound(k: int, L: int, R: int, slots: int):
+    """The bound of a kernel that writes the slot grid (K3, K4, K5):
+    R * (L/4 + L/8 + 9) bytes (packed codes and validity, mlen, allow, the
+    row total) plus 12 bytes a live slot (pos and the value; 20 at
+    k > 32, the value's high half), against ~40 int32 operations a base
+    at k <= 32 (two rolling k-mers, fmix32, window minimum, validity and
+    flag, scan) or ~80 at k > 32 (two 128-bit strands sliced from a
+    192-bit window, their compare, the fold and fmix32, validity, the van
+    Herk minimum, flag and scan), whichever is larger. Returns (bound_ms,
+    bound_by, bytes)."""
     nbytes = R * (L // 4 + L // 8 + 9) + slots * (20 if k > 32 else 12)
-    ops = R * L * (80.0 if k > 32 else 40.0)
-    b, by = bound_ms(nbytes, ops)
-    dense, _ = bound_ms(R * (L // 4 + L // 8 + 5) + R * L * 20, R * L * 80.0)
-    return b, by, nbytes, dense
+    b, by = bound_ms(nbytes, R * L * (80.0 if k > 32 else 40.0))
+    return b, by, nbytes
 
 
-def phase5_k3(rng) -> dict:
-    """K3 against its plain version, exact: row totals and every live
-    slot's pos, lo and hi, on K3_TILES (the three k=41 default tiles summed
-    for the kernel table). 1 row in 16 of each tile is unused (mlen -1).
-    ms: device time (CUDA-graph replay); call_ms: events around wrapper
-    calls, the measure of earlier runs; the bound of k3_bounds."""
-    t0 = time.perf_counter()
-    k3 = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-          "bound_dense_ms": 0.0, "max_abs_err": 0, "tiles": []}
-    for k, w, L, R in K3_TILES:
+#: bytes of the dense planes each slot-grid kernel's first version moved
+#: (its inputs and its (R, L) outputs), for bound_dense_ms
+DENSE_BYTES = {
+    "K3": lambda k, L, R: R * (L // 4 + L // 8 + 5) + R * L * 20,
+    "K4": lambda k, L, R: R * (L // 4 + L // 8 + 5) + R * L * 4 + R * 4,
+    "K5": lambda k, L, R: R * (L // 4 + 4) + R * L * (20 if k > 32 else 12),
+}
+
+
+def grid_parity(rng, name: str, kern, plain, cases) -> list:
+    """A slot-grid kernel (K3, K4, K5: name, its wrapper kern and plain
+    version plain) against its plain version, exact (row totals and every
+    live slot's pos and value planes), on cases (k, w, L, R) with the
+    tile's slot budget, 1 row in 16 unused (mlen -1). Per tile: device
+    time (ms, CUDA-graph replay), call_ms (events around wrapper calls,
+    the measure of earlier runs), the plain version's time, grid_bound
+    and the dense planes' bound (bound_dense_ms, DENSE_BYTES)."""
+    tiles = []
+    for k, w, L, R in cases:
         Br = v4_row_budget(L, w, default_budget_frac(w))
         pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
 
-        def kern():
-            return K.values_select(pc, pv, mlen, allow, k=k, w=w, Br=Br)
+        def run():
+            return kern(pc, pv, mlen, allow, k=k, w=w, Br=Br)
 
-        def plain():
-            return K.values_select_compact_plain(pc, pv, mlen, allow, k=k,
-                                                 w=w, Br=Br)
+        def run_plain():
+            return plain(pc, pv, mlen, allow, k=k, w=w, Br=Br)
 
-        (pos, lo, hi, tot), (ppos, plo, phi, ptot) = kern(), plain()
-        slots = slot_mismatches(
-            (pos, [lo] if hi is None else [lo, hi], tot),
-            (ppos, [plo] if phi is None else [plo, phi], ptot), Br,
-            f"K3 at (k, w, L, R) = {(k, w, L, R)}")
-        ms = graph_ms(kern)
-        call_ms = time_ms(kern, 20)
-        pms = time_ms(plain, 3, warm=1)
-        b, by, nbytes, dense = k3_bounds(k, L, R, slots)
-        if k == K_WIDE:
-            k3["ms"] += ms
-            k3["call_ms"] += call_ms
-            k3["plain_ms"] += pms
-            k3["bound_ms"] += b
-            k3["bound_dense_ms"] += dense
-            k3["bound_by"] = by
-        k3["tiles"].append({"k": k, "w": w, "L": L, "R": R, "Br": Br,
-                            "ms": round(ms, 4), "call_ms": round(call_ms, 4),
-                            "plain_ms": round(pms, 3), "bytes": nbytes,
-                            "bound_ms": round(b, 5), "bound_by": by,
-                            "bound_dense_ms": round(dense, 5),
-                            "ratio_to_bound": round(ms / b, 2),
-                            "slots": slots,
-                            "overflow_rows": int((tot > Br).sum())})
-    log("5 K3 parity", t0, k3=json.dumps(k3["tiles"]))
-    return k3
+        got = as_grid(run())
+        slots = slot_mismatches(got, as_grid(run_plain()), Br,
+                                f"{name} at (k, w, L, R) = {(k, w, L, R)}")
+        overflow = int((got[2] > Br).sum())
+        del got
+        ms = graph_ms(run)
+        call_ms = time_ms(run, 20)
+        pms = time_ms(run_plain, 3, warm=1)
+        b, by, nbytes = grid_bound(k, L, R, slots)
+        dense, _ = bound_ms(DENSE_BYTES[name](k, L, R),
+                            R * L * (80.0 if k > 32 else 40.0))
+        tiles.append({"k": k, "w": w, "L": L, "R": R, "Br": Br, "ms": ms,
+                      "call_ms": call_ms, "plain_ms": pms, "bytes": nbytes,
+                      "bound_ms": b, "bound_by": by, "bound_dense_ms": dense,
+                      "ratio_to_bound": ms / b, "slots": slots,
+                      "overflow_rows": overflow})
+    return tiles
 
 
-def k3_alone(rng) -> dict:
-    """``--k3``: engine.select_slots on the K3 route (the kernel and,
-    where a tree has it, the torch compaction after it) on K3_TILES, exact
-    against dense_k3_slots, by device time (CUDA-graph replay) and
-    call_ms; ms and call_ms sum the three k=41 default tiles."""
-    out = {"ms": 0.0, "call_ms": 0.0, "max_abs_err": 0, "tiles": []}
-    for k, w, L, R in K3_TILES:
-        Br = v4_row_budget(L, w, default_budget_frac(w))
-        pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
-
-        def route():
-            return select_slots(pc, pv, mlen, allow, k=k, w=w, Br=Br,
-                                route="K3")
-
-        slots = slot_mismatches(
-            route(), dense_k3_slots(pc, pv, mlen, allow, k=k, w=w, Br=Br),
-            Br, f"select_slots K3 at (k, w, L, R) = {(k, w, L, R)}")
-        ms = graph_ms(route)
-        call_ms = time_ms(route, 20)
-        if k == K_WIDE:
-            out["ms"] += ms
-            out["call_ms"] += call_ms
-        out["tiles"].append({"k": k, "w": w, "L": L, "R": R, "Br": Br,
-                             "ms": round(ms, 4),
-                             "call_ms": round(call_ms, 4), "slots": slots})
+def tile_sums(tiles: list, k: int, prefix: str = "") -> dict:
+    """ms, call_ms, plain_ms, bound_ms and bound_dense_ms summed over the
+    tiles at k, with bound_by, under names with prefix."""
+    at_k = [t for t in tiles if t["k"] == k]
+    out = {prefix + n: sum(t[n] for t in at_k)
+           for n in ("ms", "call_ms", "plain_ms", "bound_ms",
+                     "bound_dense_ms")}
+    out[prefix + "bound_by"] = at_k[-1]["bound_by"]
     return out
 
 
-def phase9_k4(rng) -> dict:
-    """K4 (select_csum) against its plain version, plane and totals equal
-    everywhere: the three K4_TILES at k=31, w=15 (summed for the kernel
-    table) and (1152, 2048) at (15, 5). Bound: 0.375 bytes per base read
-    (packed codes and validity), 4 written (the plane) and 4 per row, or
-    ~40 int32 operations per base (K1's count without its compaction),
-    whichever is larger."""
+def grid_phase(rng, phase: str, name: str, kern, plain, cases,
+               sums: dict) -> dict:
+    """grid_parity logged as a phase; sums: {prefix: k} of the tile sums
+    (tile_sums) to report."""
     t0 = time.perf_counter()
-    k4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
-          "tiles": []}
-    cases = [(K_, W_, L, R) for L, R in K4_TILES] + [(15, 5, 1152, 2048)]
-    for k, w, L, R in cases:
-        pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
+    tiles = grid_parity(rng, name, kern, plain, cases)
+    out = {"max_abs_err": 0}
+    for prefix, k in sums.items():
+        out.update(tile_sums(tiles, k, prefix))
+    out["tiles"] = tiles
+    log(phase, t0, **{name.lower(): json.dumps(tiles)})
+    return out
 
-        def kern():
-            return K.select_csum(pc, pv, mlen, allow, k=k, w=w)
 
-        def plain():
-            return K.select_csum_plain(pc, pv, mlen, allow, k=k, w=w)
+def phase5_k3(rng) -> dict:
+    """K3 (values_select) against its plain version on K3_TILES (the three
+    k=41 default tiles summed for the kernel table)."""
+    return grid_phase(rng, "5 K3 parity", "K3", K.values_select,
+                      K.values_select_compact_plain, K3_TILES,
+                      {"": K_WIDE})
 
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        bad = sum(int((g != p_).sum()) for g, p_ in zip(got, want))
-        if bad:
-            raise AssertionError(
-                f"K4 differs from its plain version at {bad} entries, "
-                f"(k, w, L, R) = {(k, w, L, R)}")
-        ms = time_ms(kern, 20)
-        pms = time_ms(plain, 3, warm=1)
-        nbytes = R * (L // 4 + L // 8 + 4 + 1) + R * L * 4 + R * 4
-        b, by = bound_ms(nbytes, R * L * 40.0)
-        if k == K_:
-            k4["ms"] += ms
-            k4["plain_ms"] += pms
-            k4["bound_ms"] += b
-            k4["bound_by"] = by
-        k4["tiles"].append({"k": k, "w": w, "L": L, "R": R,
-                            "ms": round(ms, 4), "plain_ms": round(pms, 3),
-                            "bytes": nbytes, "bound_ms": round(b, 5),
-                            "bound_by": by, "flagged": int(got[1].sum())})
-    log("9 K4 parity", t0, k4=json.dumps(k4["tiles"]))
-    return k4
+
+#: K4's tiles: K4_TILES at k=31, w=15 and (1152, 2048) at (15, 5)
+K4_CASES = [(K_, W_, L, R) for L, R in K4_TILES] + [(15, 5, 1152, 2048)]
+
+#: K5's tiles: the three default tiles at k=31 and k=41, w=15, and
+#: (2048, 2048) at (56, 9)
+K5_CASES = [(k, W_, L, R) for k in (K_, K_WIDE)
+            for L, R in DevicePipeline.DEFAULT_TILES] + [(56, 9, 2048, 2048)]
+
+
+def phase9_k4(rng) -> dict:
+    """K4 (select_csum) against its plain version (select_csum_slots_plain)
+    on K4_CASES (the three K4_TILES summed for the kernel table)."""
+    return grid_phase(rng, "9 K4 parity", "K4", K.select_csum,
+                      K.select_csum_slots_plain, K4_CASES, {"": K_})
 
 
 def phase10_k5(rng) -> dict:
-    """K5 (values_argmin) against its plain version, value planes and wp
-    equal everywhere: the three default tiles at k=31 (summed for the
-    kernel table) and k=41, w=15, and (2048, 2048) at (56, 9). Bound: 0.25
-    bytes per base read (packed codes; K5 takes no validity) and 12
-    written at k <= 32 (the value and wp), 20 above, or ~40 (k <= 32) or
-    ~80 (128-bit values) int32 operations per base, whichever is
-    larger."""
-    t0 = time.perf_counter()
-    k5 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0,
-          "k41_ms": 0.0, "tiles": []}
-    cases = [(k, W_, L, R) for k in (K_, K_WIDE)
-             for L, R in DevicePipeline.DEFAULT_TILES]
-    cases.append((56, 9, 2048, 2048))
+    """K5 (values_argmin) against its plain version
+    (values_argmin_slots_plain) on K5_CASES (the three default tiles at
+    k=31 summed for the kernel table, at k=41 as k41_*)."""
+    return grid_phase(rng, "10 K5 parity", "K5", K.values_argmin,
+                      K.values_argmin_slots_plain, K5_CASES,
+                      {"": K_, "k41_": K_WIDE})
+
+
+def route_alone(rng, route: str, cases, dense) -> dict:
+    """``--k3``, ``--k4``, ``--k5``: engine.select_slots on one route (its
+    kernel and whatever torch work a tree runs after it) on cases, exact
+    against dense (the route built from plain parts every tree has), by
+    device time (CUDA-graph replay) and call_ms; ms_by_k and
+    call_ms_by_k sum the tiles at each k."""
+    out = {"ms_by_k": {}, "call_ms_by_k": {}, "max_abs_err": 0, "tiles": []}
     for k, w, L, R in cases:
-        pc, _, mlen, _ = parity_tile(rng, k, w, L, R)
+        Br = v4_row_budget(L, w, default_budget_frac(w))
+        pc, pv, mlen, allow = parity_tile(rng, k, w, L, R)
 
-        def kern():
-            return K.values_argmin(pc, mlen, k=k, w=w)
+        def run():
+            return select_slots(pc, pv, mlen, allow, k=k, w=w, Br=Br,
+                                route=route)
 
-        def plain():
-            return K.values_argmin_plain(pc, mlen, k=k, w=w)
+        slots = slot_mismatches(
+            run(), dense(pc, pv, mlen, allow, k=k, w=w, Br=Br), Br,
+            f"select_slots {route} at (k, w, L, R) = {(k, w, L, R)}")
+        ms = graph_ms(run)
+        call_ms = time_ms(run, 20)
+        out["ms_by_k"][k] = out["ms_by_k"].get(k, 0.0) + ms
+        out["call_ms_by_k"][k] = out["call_ms_by_k"].get(k, 0.0) + call_ms
+        out["tiles"].append({"k": k, "w": w, "L": L, "R": R, "Br": Br,
+                             "ms": ms, "call_ms": call_ms, "slots": slots})
+    return out
 
-        (planes, wp), (pplanes, pwp) = kern(), plain()
-        torch.cuda.synchronize()
-        bad = int((wp != pwp).sum()) + sum(
-            int((g != p_).sum()) for g, p_ in zip(planes, pplanes))
-        if bad or len(planes) != len(pplanes):
-            raise AssertionError(
-                f"K5 differs from its plain version at {bad} entries, "
-                f"(k, w, L, R) = {(k, w, L, R)}")
-        del planes, wp, pplanes, pwp
-        ms = time_ms(kern, 20)
-        pms = time_ms(plain, 3, warm=1)
-        wide = k > 32
-        nbytes = R * (L // 4 + 4) + R * L * (20 if wide else 12)
-        b, by = bound_ms(nbytes, R * L * (80.0 if wide else 40.0))
-        if k == K_:
-            k5["ms"] += ms
-            k5["plain_ms"] += pms
-            k5["bound_ms"] += b
-            k5["bound_by"] = by
-        elif k == K_WIDE:
-            k5["k41_ms"] += ms
-        k5["tiles"].append({"k": k, "w": w, "L": L, "R": R,
-                            "ms": round(ms, 4), "plain_ms": round(pms, 3),
-                            "bytes": nbytes, "bound_ms": round(b, 5),
-                            "bound_by": by})
-    log("10 K5 parity", t0, k5=json.dumps(k5["tiles"]),
-        k41_sum_ms=round(k5["k41_ms"], 4))
-    return k5
+
+#: the route modes: route, its cases and its dense oracle
+ROUTE_MODES = {"--k3": ("K3", K3_TILES, dense_k3_slots),
+               "--k4": ("K4", K4_CASES, dense_k4_slots),
+               "--k5": ("K5", K5_CASES, dense_k5_slots)}
 
 
 # ---------------------------------------------------------------------------
@@ -1917,11 +1919,12 @@ def main() -> int:
                for n in ("S4", "S3")},
             "repeat_heavy": k2["repeat_heavy"]}), flush=True)
         return 0
-    if sys.argv[1:] == ["--k3"]:
+    if len(sys.argv) == 2 and sys.argv[1] in ROUTE_MODES:
+        route, cases, dense = ROUTE_MODES[sys.argv[1]]
         t0 = time.perf_counter()
-        k3 = k3_alone(rng)
-        log("5 K3 route alone", t0, k3=json.dumps(k3["tiles"]))
-        print(json.dumps(k3), flush=True)
+        out = route_alone(rng, route, cases, dense)
+        log(f"{route} route alone", t0, tiles=json.dumps(out["tiles"]))
+        print(json.dumps(out), flush=True)
         return 0
     if sys.argv[1:] == ["--k1"]:
         t0 = time.perf_counter()
@@ -1987,7 +1990,10 @@ def main() -> int:
          "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
          "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": k4["bound_by"], "library_ms": None,
-         "shapes": f"sum over the tiles {K4_TILES_ENV} at k=31, w=15"},
+         "call_ms": k4["call_ms"], "bound_dense_ms": k4["bound_dense_ms"],
+         "shapes": f"sum over the tiles {K4_TILES_ENV} at k=31, w=15; ms "
+                   "by CUDA-graph replay, call_ms around wrapper calls; "
+                   "bound_dense_ms: the dense plane's bound"},
         {"name": "K5 values_argmin", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/values_argmin.cu",
          "replaces": "deacon_tpu/ops/pallas_kernels.py:793",
@@ -1995,7 +2001,14 @@ def main() -> int:
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": None,
-         "shapes": "sum over the three default tiles at k=31, w=15"},
+         "call_ms": k5["call_ms"], "bound_dense_ms": k5["bound_dense_ms"],
+         "k41": {n: k5["k41_" + n] for n in ("ms", "call_ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "bound_dense_ms")},
+         "shapes": "sum over the three default tiles at k=31, w=15 (k41: "
+                   "at k=41); ms by CUDA-graph replay, call_ms around "
+                   "wrapper calls; bound_dense_ms: the dense planes' "
+                   "bound"},
         {"name": "K2 radix_probe, sharded form", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/radix_probe.cu",
          "replaces": "deacon_tpu/ops/radix_probe.py:973",

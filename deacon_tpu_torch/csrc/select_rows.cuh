@@ -1,6 +1,8 @@
 // Minimizer selection of a tile's rows into the slot grid: the device code
-// that K1 (csrc/extract.cu, k <= 32, 64-bit values) and K3
-// (csrc/values_select.cu, k <= 57, 128-bit values) share.
+// that K1 (csrc/extract.cu, k <= 32, 64-bit values), K3
+// (csrc/values_select.cu, k <= 57, 128-bit values), K4
+// (csrc/select_csum.cu, K1's instantiation) and K5 (csrc/values_argmin.cu,
+// K3's instantiations, k <= 56) share.
 //
 // For every row (L bases, 2-bit codes plus a validity bitmask) it computes,
 // at each column c:

@@ -135,13 +135,9 @@ def library() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp,
         ]
         lib.dx_values_select.restype = i32
-        lib.dx_select_csum.argtypes = [
-            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, vp,
-        ]
+        lib.dx_select_csum.argtypes = lib.dx_select_compact.argtypes
         lib.dx_select_csum.restype = i32
-        lib.dx_values_argmin.argtypes = [
-            vp, vp, vp, vp, vp, i32, i32, i32, i32, vp,
-        ]
+        lib.dx_values_argmin.argtypes = lib.dx_values_select.argtypes
         lib.dx_values_argmin.restype = i32
         _lib = lib
     return _lib

@@ -13,17 +13,16 @@ One engine step per batch of rows of a tile (L, R), all on the device:
      compaction in one kernel;
    * "K4" (arch 3: L a multiple of 128 but not a power of two, or
      DEACON_ENGINE=3): K4 (ops/kernels.select_csum,
-     csrc/select_csum.cu) writes the in-row flag cumsum and wp, a
-     per-row searchsorted finds each slot's window and the canonical
-     value at its wp is rebuilt from the packed codes (csum_slots);
+     csrc/select_csum.cu) does K1's work, with K1's device code, in one
+     kernel;
    * "K3" (arch 2: k > 32, R % 8 != 0 or DEACON_ENGINE=2): K3
      (ops/kernels.values_select, csrc/values_select.cu) does K1's work
      for k <= 57, with 128-bit values above k = 32, in one kernel;
    * "K5" (DEACON_PALLAS=1, k <= 56, on any tile): K5
-     (ops/kernels.values_argmin, csrc/values_argmin.cu) writes the value
-     at every column and wp, kernels.flag_mask flags the windows, the
-     values are gathered at wp and kernels.compact_rows compacts the
-     flagged windows into the slot grid;
+     (ops/kernels.values_argmin, csrc/values_argmin.cu) does K3's work,
+     with K3's device code, in one kernel;
+   every route's kernel writes the slot grid itself (csrc/select_rows.cuh,
+   shared by the four); no torch compaction follows it;
 2. XXH3-64 of every slot's value, 8 or 16 bytes (ops/hash.py);
 3. the probe stream sorted by (hash, read) and K2
    (ops/kernels.probe_hits, csrc/radix_probe.cu) against the step's
@@ -58,14 +57,7 @@ from ..constants import MAX_K_BUILD, MAX_K_FILTER
 from ..device import resolve_device
 from . import minimizers_np as mnp
 from .hash import as_i64, lsr, xxh3_64, xxh3_64_u128
-from .kernels import (
-    compact_rows,
-    flag_mask,
-    select_compact,
-    select_csum,
-    values_argmin,
-    values_select,
-)
+from .kernels import select_compact, select_csum, values_argmin, values_select
 from .pack import (
     INDEX_CODE,
     _Row,
@@ -166,46 +158,6 @@ def env_tiles():
 # One engine step
 # ---------------------------------------------------------------------------
 
-_AAAA = as_i64(0xAAAAAAAAAAAAAAAA)
-
-
-def _rev2_64(x: torch.Tensor) -> torch.Tensor:
-    """Reverse the 32 2-bit groups of int64 bit patterns."""
-    for n, m in ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF),
-                 (4, 0x0F0F0F0F0F0F0F0F), (2, 0x3333333333333333)):
-        x = (lsr(x, n) & m) | ((x & m) << n)
-    return lsr(x, 32) | (x << 32)
-
-
-def canonical_at(pc: torch.Tensor, pos: torch.Tensor, k: int):
-    """(R, Br) int64 canonical values (k <= 32) of the k-mers at slot
-    positions, rebuilt from the packed rows: the forward value read from
-    the code stream, its complement with the 2-bit groups reversed, and
-    the unsigned minimum of the two (the JAX package's
-    _stage_hash_packed)."""
-    f, _ = forward_values(pc, pos, k)
-    comp = _AAAA if k == 32 else _AAAA & ((1 << (2 * k)) - 1)
-    r = _rev2_64(f ^ comp)
-    if k < 32:
-        r = lsr(r, 64 - 2 * k)
-    take_f = (f ^ _I64_MIN) <= (r ^ _I64_MIN)
-    return torch.where(take_f, f, r)
-
-
-def csum_slots(pc, plane, tot, *, k: int, Br: int):
-    """K4's plane -> K1's slot grid: slot t of row r holds the window whose
-    in-row inclusive cumsum first reaches t + 1 (a per-row searchsorted of
-    plane >> 16), its wp (plane & 0xFFFF) and the canonical value there.
-    Returns ((R, Br) int32 positions, [(R, Br) int64 values], (R,) int32
-    row totals); slots at or past a row's total are unspecified."""
-    R, L = plane.shape
-    t = torch.arange(1, Br + 1, dtype=torch.int32, device=plane.device)
-    col = torch.searchsorted((plane >> 16).contiguous(),
-                             t[None, :].expand(R, Br).contiguous())
-    pos = plane.gather(1, col.clamp_(max=L - 1)) & 0xFFFF
-    return pos, [canonical_at(pc, pos, k)], tot
-
-
 def select_slots(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int,
                  route: str):
     """Selected minimizers of every row, compacted in column order into an
@@ -217,16 +169,11 @@ def select_slots(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int,
                                        Br=Br)
         return pos, [val], tot
     if route == "K4":
-        plane, tot = select_csum(pc, pv, mlen, allow_short, k=k, w=w)
-        return csum_slots(pc, plane, tot, k=k, Br=Br)
-    if route == "K5":
-        planes, wp = values_argmin(pc, mlen, k=k, w=w)
-        flag = flag_mask(wp, pv, mlen, allow_short, k=k, w=w)
-        at_wp = wp.to(torch.int64)
-        planes = [p.gather(1, at_wp) for p in planes]
-        return compact_rows(flag, wp, planes, Br)
-    pos, lo, hi, tot = values_select(pc, pv, mlen, allow_short, k=k, w=w,
-                                     Br=Br)
+        pos, val, tot = select_csum(pc, pv, mlen, allow_short, k=k, w=w,
+                                    Br=Br)
+        return pos, [val], tot
+    select = values_argmin if route == "K5" else values_select
+    pos, lo, hi, tot = select(pc, pv, mlen, allow_short, k=k, w=w, Br=Br)
     return pos, [lo] if hi is None else [lo, hi], tot
 
 

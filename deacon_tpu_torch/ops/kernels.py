@@ -13,9 +13,18 @@
   compaction after it: K1's design and slot grid for k <= 57, with
   128-bit values (csrc/select_rows.cuh, shared with K1).
 * K4 ``select_csum`` (csrc/select_csum.cu) replaces the TPU kernel
-  ``select_csum_packed`` (deacon_tpu/ops/pallas_kernels.py).
+  ``select_csum_packed`` (deacon_tpu/ops/pallas_kernels.py) and the
+  slot search after it: K1's function and instantiation, writing the
+  slot grid.
 * K5 ``values_argmin`` (csrc/values_argmin.cu) replaces the TPU kernel
-  ``values_argmin_fused`` (deacon_tpu/ops/pallas_kernels.py).
+  ``values_argmin_fused`` (deacon_tpu/ops/pallas_kernels.py) and the flag
+  mask, gather and compaction after it: K3's function and
+  instantiations for k <= 56, writing the slot grid.
+
+K1, K3, K4 and K5 share their device code (csrc/select_rows.cuh). Each
+keeps a dense plain version of its TPU kernel (values_select_plain,
+select_csum_plain, values_argmin_plain) beside the plain version of the
+kernel itself, for the tests against the JAX package.
 
 A wrapper runs its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel on the current stream of the tensors'
@@ -55,20 +64,23 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _check_tile(name: str, pc, pv, mlen, allow_short, k: int, w: int,
-                kmax: int):
+                Br: int, kmax: int):
+    """The inputs of a selection kernel writing the slot grid (K1, K3-K5):
+    1 <= k <= kmax, 128 | L <= 16384, 128 | Br <= L. Returns (R, L,
+    device)."""
     R, Lp = pc.shape
     L = Lp * 4
     if not (1 <= k <= kmax and w >= 1):
         raise ValueError(f"{name} supports 1 <= k <= {kmax}, got k={k}")
     if L % 128 or not 0 < L <= 16384:
         raise ValueError(f"{name}: bad tile L={L} (need 128 | L <= 16384)")
+    if Br % 128 or not 0 < Br <= L:
+        raise ValueError(f"{name}: bad tile L={L}, Br={Br}")
     dev = pc.device
     _require(pc, "packed codes", torch.uint8, (R, L // 4), dev)
-    if pv is not None:
-        _require(pv, "packed validity", torch.uint8, (R, L // 8), dev)
+    _require(pv, "packed validity", torch.uint8, (R, L // 8), dev)
     _require(mlen, "mlen", torch.int32, (R,), dev)
-    if allow_short is not None:
-        _require(allow_short, "allow_short", torch.bool, (R,), dev)
+    _require(allow_short, "allow_short", torch.bool, (R,), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return R, L, dev
@@ -272,9 +284,7 @@ def select_compact(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
     Constraints (the TPU kernel's): k <= 32, 128 | L <= 16384,
     128 | Br <= L."""
     R, L, dev = _check_tile("select_compact", pc, pv, mlen, allow_short, k,
-                            w, 32)
-    if Br % 128 or not 0 < Br <= L:
-        raise ValueError(f"select_compact: bad tile L={L}, Br={Br}")
+                            w, Br, 32)
     if dev.type == "cpu":
         return select_compact_plain(pc, pv, mlen, allow_short, k=k, w=w, Br=Br)
     from . import _build
@@ -334,9 +344,7 @@ def values_select(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
     values_select_compact_plain. Constraints: 1 <= k <= 57,
     128 | L <= 16384, 128 | Br <= L."""
     R, L, dev = _check_tile("values_select", pc, pv, mlen, allow_short, k,
-                            w, 57)
-    if Br % 128 or not 0 < Br <= L:
-        raise ValueError(f"values_select: bad tile L={L}, Br={Br}")
+                            w, Br, 57)
     if dev.type == "cpu":
         return values_select_compact_plain(pc, pv, mlen, allow_short, k=k,
                                            w=w, Br=Br)
@@ -363,11 +371,11 @@ values_select.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: flag cumsum plane (arch 3)
+# K4: arch-3 selection into the slot grid
 # ---------------------------------------------------------------------------
 
 def select_csum_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
-    """Plain PyTorch version of K4 (the same function as the kernel).
+    """The JAX package's select_csum_packed in plain PyTorch, dense.
 
     Inputs as select_compact_plain. Returns ((R, L) int32 plane, (R,)
     int32 row totals): plane = (in-row inclusive cumsum of the final
@@ -377,70 +385,120 @@ def select_csum_plain(pc, pv, mlen, allow_short, *, k: int, w: int):
     return (cs << 16) | wp.to(torch.int32), cs[:, -1].contiguous()
 
 
-def select_csum(pc, pv, mlen, allow_short, *, k: int, w: int):
-    """K4 wrapper: same arguments and results as select_csum_plain.
-    Constraints: 1 <= k <= 32, 128 | L <= 16384 (wp and the cumsum share
-    one int32 word)."""
-    R, L, dev = _check_tile("select_csum", pc, pv, mlen, allow_short, k, w,
-                            32)
+def csum_slots(pc, plane, tot, *, k: int, Br: int):
+    """select_csum_plain's plane -> the slot grid: slot t of row r holds
+    the window whose in-row inclusive cumsum first reaches t + 1 (a
+    per-row searchsorted of plane >> 16), its wp (plane & 0xFFFF) and the
+    canonical value there. Returns ((R, Br) int32 positions, [(R, Br)
+    int64 values], (R,) int32 row totals); slots at or past a row's total
+    are unspecified."""
+    R, L = plane.shape
+    t = torch.arange(1, Br + 1, dtype=torch.int32, device=plane.device)
+    col = torch.searchsorted((plane >> 16).contiguous(),
+                             t[None, :].expand(R, Br).contiguous())
+    pos = plane.gather(1, col.clamp_(max=L - 1)) & 0xFFFF
+    (canon,) = _canonical_plain(_unpack_codes(pc), k)
+    return pos, [canon.gather(1, pos.to(torch.int64))], tot
+
+
+def select_csum_slots_plain(pc, pv, mlen, allow_short, *, k: int, w: int,
+                            Br: int):
+    """Plain PyTorch version of K4 (the same function as the kernel):
+    csum_slots over select_csum_plain. Returns ((R, Br) int32 positions,
+    (R, Br) int64 canonical values, (R,) int32 row totals), as
+    select_compact_plain does; slots at or past a row's total are
+    unspecified."""
+    plane, tot = select_csum_plain(pc, pv, mlen, allow_short, k=k, w=w)
+    pos, (val,), tot = csum_slots(pc, plane, tot, k=k, Br=Br)
+    return pos, val, tot
+
+
+def select_csum(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
+    """K4 wrapper: same arguments and results as select_csum_slots_plain.
+    Constraints (the TPU kernel's, and the slot grid's): 1 <= k <= 32,
+    128 | L <= 16384, 128 | Br <= L."""
+    R, L, dev = _check_tile("select_csum", pc, pv, mlen, allow_short, k,
+                            w, Br, 32)
     if dev.type == "cpu":
-        return select_csum_plain(pc, pv, mlen, allow_short, k=k, w=w)
+        return select_csum_slots_plain(pc, pv, mlen, allow_short, k=k, w=w,
+                                       Br=Br)
     from . import _build
 
     lib = _build.library()
-    plane = torch.empty((R, L), dtype=torch.int32, device=dev)
+    pos = torch.empty((R, Br), dtype=torch.int32, device=dev)
+    val = torch.empty((R, Br), dtype=torch.int64, device=dev)
     tot = torch.empty((R,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.dx_select_csum(
-            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(plane),
-            _ptr(tot), R, L, k, w, _stream(dev),
+            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(pos),
+            _ptr(val), _ptr(tot), R, L, k, w, Br, _stream(dev),
         )
     _build.check(err, "select_csum launch")
     select_csum.launches += 1
-    return plane, tot
+    return pos, val, tot
 
 
 select_csum.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K5: values at every position and the window argmin (forced v1)
+# K5: forced-v1 selection into the slot grid
 # ---------------------------------------------------------------------------
 
 def values_argmin_plain(pc, mlen, *, k: int, w: int):
-    """Plain PyTorch version of K5 (the same function as the kernel).
+    """The JAX package's values_argmin_fused in plain PyTorch, dense.
 
     pc (R, L/4) uint8 packed codes, mlen (R,) int32. Returns (value
     planes, (R, L) int32 wp): the canonical value of the k-mer AT each
     column as int64 planes ([lo] for k <= 32, [lo, hi] above; bases past
     L count as 0 on both strands), and the leftmost window minimum of the
     selection keys over [c, c + w). No validity and no flag: flag_mask
-    and a gather at wp follow it."""
+    and a gather at wp follow it (values_argmin_slots_plain)."""
     canon, wp = _values_wp(pc, mlen, k=k, w=w)
     return canon, wp.to(torch.int32)
 
 
-def values_argmin(pc, mlen, *, k: int, w: int):
-    """K5 wrapper: same arguments and results as values_argmin_plain.
-    Constraints: 1 <= k <= 56, 128 | L <= 16384."""
-    R, L, dev = _check_tile("values_argmin", pc, None, mlen, None, k, w, 56)
+def values_argmin_slots_plain(pc, pv, mlen, allow_short, *, k: int, w: int,
+                              Br: int):
+    """Plain PyTorch version of K5 (the same function as the kernel):
+    compact_rows over flag_mask and over values_argmin_plain's planes
+    gathered at wp. Returns ((R, Br) int32 positions, (R, Br) int64 low
+    halves, (R, Br) int64 high halves or None for k <= 32, (R,) int32 row
+    totals), as values_select_compact_plain does."""
+    planes, wp = values_argmin_plain(pc, mlen, k=k, w=w)
+    flag = flag_mask(wp, pv, mlen, allow_short, k=k, w=w)
+    at_wp = wp.to(torch.int64)
+    pos, planes, tot = compact_rows(
+        flag, wp, [p.gather(1, at_wp) for p in planes], Br)
+    return pos, planes[0], planes[1] if k > 32 else None, tot
+
+
+def values_argmin(pc, pv, mlen, allow_short, *, k: int, w: int, Br: int):
+    """K5 wrapper: same arguments and results as values_argmin_slots_plain.
+    Constraints: 1 <= k <= 56 (the JAX package's forced v1 path), any R,
+    128 | L <= 16384, 128 | Br <= L."""
+    R, L, dev = _check_tile("values_argmin", pc, pv, mlen, allow_short, k,
+                            w, Br, 56)
     if dev.type == "cpu":
-        return values_argmin_plain(pc, mlen, k=k, w=w)
+        return values_argmin_slots_plain(pc, pv, mlen, allow_short, k=k,
+                                         w=w, Br=Br)
     from . import _build
 
     lib = _build.library()
-    planes = [torch.empty((R, L), dtype=torch.int64, device=dev)
-              for _ in range(1 if k <= 32 else 2)]
-    wp = torch.empty((R, L), dtype=torch.int32, device=dev)
+    pos = torch.empty((R, Br), dtype=torch.int32, device=dev)
+    lo = torch.empty((R, Br), dtype=torch.int64, device=dev)
+    hi = (torch.empty((R, Br), dtype=torch.int64, device=dev) if k > 32
+          else None)
+    tot = torch.empty((R,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.dx_values_argmin(
-            _ptr(pc), _ptr(mlen), _ptr(planes[0]),
-            _ptr(planes[1]) if k > 32 else None, _ptr(wp), R, L, k, w,
-            _stream(dev),
+            _ptr(pc), _ptr(pv), _ptr(mlen), _ptr(allow_short), _ptr(pos),
+            _ptr(lo), _ptr(hi) if hi is not None else None, _ptr(tot), R, L,
+            k, w, Br, _stream(dev),
         )
     _build.check(err, "values_argmin launch")
     values_argmin.launches += 1
-    return planes, wp
+    return pos, lo, hi, tot
 
 
 values_argmin.launches = 0

@@ -126,9 +126,12 @@ def test_k1_kernel_unaligned_inputs_match_plain(cuda):
         assert torch.equal(g[live], x[live])
 
 
-def _k3_check(got, want, Br):
-    """K3's slot grid against its plain version's: totals exactly, and
-    every live slot's position and value halves exactly."""
+def _slots_check(got, want, Br):
+    """A slot grid against its plain version's: totals exactly, and every
+    live slot's position and value halves exactly. got and want are
+    (pos, lo, hi, tot) (K3, K5) or (pos, val, tot) (K1, K4)."""
+    if len(got) == 3:
+        got, want = (g[:2] + (None,) + g[2:] for g in (got, want))
     pos, lo, hi, tot = got
     ppos, plo, phi, ptot = want
     assert torch.equal(tot, ptot)
@@ -166,7 +169,7 @@ def test_k3_kernel_matches_plain(cuda, k, w, L, R, Br, edge):
     got = tk.values_select(*args, k=k, w=w, Br=Br)
     want = tk.values_select_compact_plain(*args, k=k, w=w, Br=Br)
     torch.cuda.synchronize()
-    _k3_check(got, want, Br)
+    _slots_check(got, want, Br)
     if edge and Br < L:
         assert bool((got[3] > Br).any())  # the homopolymer row overflows
 
@@ -188,36 +191,85 @@ def test_k3_kernel_unaligned_inputs_match_plain(cuda, k):
     want = tk.values_select_compact_plain(pc, pv, mlen, allow, k=k, w=w,
                                           Br=Br)
     torch.cuda.synchronize()
-    _k3_check(got, want, Br)
+    _slots_check(got, want, Br)
 
 
-@pytest.mark.parametrize("k,w,L,R", [(31, 15, 384, 4096), (31, 15, 1152, 64),
-                                     (31, 15, 12288, 32), (15, 5, 1152, 16),
-                                     (32, 7, 256, 8), (5, 3, 128, 8)])
-def test_k4_kernel_matches_plain(cuda, k, w, L, R):
+@pytest.mark.parametrize("k,w,L,R,Br", [
+    # the K4 tiles (non-power-of-two L) and small ones
+    (31, 15, 384, 4096, None), (31, 15, 1152, 64, None),
+    (31, 15, 12288, 32, None), (15, 5, 1152, 16, None), (32, 7, 256, 8, None),
+    (5, 3, 128, 8, None),
+    # K1's edges: k = 1 and 32, w = 1, 33 and 63, padded runs (L = 384,
+    # 1152, 12288); R not a multiple of 8; Br = 128 and Br = L
+    (1, 15, 384, 16, None), (32, 15, 384, 16, None), (31, 1, 1152, 8, None),
+    (31, 33, 384, 16, None), (15, 63, 1152, 8, None), (32, 63, 128, 9, None),
+    (1, 1, 128, 8, None), (7, 33, 384, 8, None), (13, 63, 12288, 8, None),
+    (32, 5, 12288, 8, None), (31, 15, 640, 5, 640), (21, 11, 1152, 3, 128),
+])
+def test_k4_kernel_matches_plain(cuda, k, w, L, R, Br):
     rng = np.random.default_rng(k + w + L + 2)
-    args = [a.to(cuda) for a in _tile(rng, R, L, k, w)]
-    got = tk.select_csum(*args, k=k, w=w)
-    want = tk.select_csum_plain(*args, k=k, w=w)
+    if Br is None:
+        Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
+    args = [a.to(cuda) for a in _tile(rng, R, L, k, w, edge=True)]
+    got = tk.select_csum(*args, k=k, w=w, Br=Br)
+    want = tk.select_csum_slots_plain(*args, k=k, w=w, Br=Br)
     torch.cuda.synchronize()
-    for g, w_ in zip(got, want):
-        assert torch.equal(g, w_)
-    assert int(got[1].sum()) > 0
+    _slots_check(got, want, Br)
+    if Br < L:
+        assert bool((got[2] > Br).any())  # the homopolymer row overflows
 
 
-@pytest.mark.parametrize("k,w,L,R", [(31, 15, 256, 64), (41, 15, 2048, 16),
-                                     (56, 9, 2048, 16), (21, 11, 16384, 8),
-                                     (41, 15, 16384, 64), (5, 3, 128, 8)])
-def test_k5_kernel_matches_plain(cuda, k, w, L, R):
+@pytest.mark.parametrize("k,w,L,R,Br,edge", [
+    (31, 15, 256, 64, None, False), (41, 15, 2048, 16, None, False),
+    (56, 9, 2048, 16, None, False), (21, 11, 16384, 8, None, False),
+    (41, 15, 16384, 64, None, False), (5, 3, 128, 8, None, False),
+    # K3's list up to k = 56: its main-path tiles, then its edges with the
+    # edge rows
+    (41, 15, 256, 64, None, False), (31, 15, 2048, 16, None, False),
+    (41, 15, 16384, 512, None, False),
+    (33, 15, 256, 16, None, True), (56, 15, 1152, 8, None, True),
+    (56, 9, 384, 8, None, True), (32, 15, 256, 16, None, True),
+    (41, 1, 256, 16, None, True), (56, 1, 2048, 8, 128, True),
+    (21, 1, 1152, 8, None, True),
+    # L = 128 and 16384; R not a multiple of 8; Br = 128 and Br = L
+    (33, 7, 128, 8, 128, True), (56, 63, 128, 9, None, True),
+    (41, 15, 128, 5, 128, True), (56, 33, 4096, 13, 4096, True),
+    (41, 15, 16384, 3, 16384, True), (56, 15, 16384, 8, 128, True),
+    (21, 11, 16384, 5, None, True), (45, 20, 640, 7, 128, True),
+])
+def test_k5_kernel_matches_plain(cuda, k, w, L, R, Br, edge):
     rng = np.random.default_rng(k + w + L + 3)
-    pc, _, mlen, _ = [a.to(cuda) for a in _tile(rng, R, L, k, w)]
-    planes, wp = tk.values_argmin(pc, mlen, k=k, w=w)
-    pplanes, pwp = tk.values_argmin_plain(pc, mlen, k=k, w=w)
+    if Br is None:
+        Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
+    args = [a.to(cuda) for a in _tile(rng, R, L, k, w, edge=edge)]
+    got = tk.values_argmin(*args, k=k, w=w, Br=Br)
+    want = tk.values_argmin_slots_plain(*args, k=k, w=w, Br=Br)
     torch.cuda.synchronize()
-    assert len(planes) == len(pplanes) == (1 if k <= 32 else 2)
-    assert torch.equal(wp, pwp)
-    for g, w_ in zip(planes, pplanes):
-        assert torch.equal(g, w_)
+    _slots_check(got, want, Br)
+    if edge and Br < L:
+        assert bool((got[3] > Br).any())  # the homopolymer row overflows
+
+
+@pytest.mark.parametrize("kernel,k", [("K4", 31), ("K5", 31), ("K5", 41)])
+def test_k4_k5_kernel_unaligned_inputs_match_plain(cuda, kernel, k):
+    """Packed inputs that do not start on a 16-byte boundary take the
+    byte-wise staging path of K4's and K5's instantiations too."""
+    w, L, R = 15, 384, 16
+    rng = np.random.default_rng(k + 8)
+    Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
+    pc, pv, mlen, allow = [a.to(cuda) for a in
+                           _tile(rng, R, L, k, w, edge=True)]
+    pcu = torch.empty(pc.numel() + 1, dtype=torch.uint8, device=cuda)
+    pvu = torch.empty(pv.numel() + 1, dtype=torch.uint8, device=cuda)
+    pcu = pcu[1:].view(pc.shape).copy_(pc)
+    pvu = pvu[1:].view(pv.shape).copy_(pv)
+    wrapper, plain = {
+        "K4": (tk.select_csum, tk.select_csum_slots_plain),
+        "K5": (tk.values_argmin, tk.values_argmin_slots_plain)}[kernel]
+    got = wrapper(pcu, pvu, mlen, allow, k=k, w=w, Br=Br)
+    want = plain(pc, pv, mlen, allow, k=k, w=w, Br=Br)
+    torch.cuda.synchronize()
+    _slots_check(got, want, Br)
 
 
 @pytest.mark.parametrize("spill", [False, True])

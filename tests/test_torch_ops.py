@@ -313,6 +313,38 @@ def test_k3_compact_plain_matches_pallas_interpret(k, w):
         np.testing.assert_array_equal(_u64(got)[live], want[live])
 
 
+def _packed_edge_tile(rng, R, L, k, w):
+    """_random_tile's R rows (dirty bases, a short, an empty and a
+    low-complexity row) and the eight edge rows (an unused row, a
+    homopolymer over its budget), packed: (pc, pv, mlen, allow)."""
+    codes, validb, mlen, allow = _random_tile(rng, R, L, k, w)
+    pc, pv = jeng.host_pack_bits(codes, validb)
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (pc, pv, mlen, allow)]
+
+
+def _as_grid(out):
+    """A wrapper's (pos, val, tot) or (pos, lo, hi, tot) as select_slots'
+    (pos, [planes], tot)."""
+    if len(out) == 3:
+        return out[0], [out[1]], out[2]
+    pos, lo, hi, tot = out
+    return pos, [lo] if hi is None else [lo, hi], tot
+
+
+def _assert_slots_equal(got, want, Br):
+    """Two slot grids: totals exactly, then every live slot's position and
+    value planes."""
+    pos, planes, tot = got
+    wpos, wplanes, wtot = want
+    assert torch.equal(tot, wtot) and int(tot.sum()) > 0
+    live = torch.arange(Br)[None, :] < tot.clamp(max=Br)[:, None]
+    assert torch.equal(pos[live], wpos[live])
+    assert len(planes) == len(wplanes)
+    for g, w_ in zip(planes, wplanes):
+        assert torch.equal(g[live], w_[live])
+
+
 @pytest.mark.parametrize("k,w,Br", [(31, 15, 128), (41, 15, 256),
                                     (57, 1, 640)])
 def test_k3_select_slots_matches_dense_compaction(k, w, Br):
@@ -321,39 +353,116 @@ def test_k3_select_slots_matches_dense_compaction(k, w, Br):
     codes, validb, mlen, allow = _k3_edge_tile(k, w)
     pc, pv = jeng.host_pack_bits(codes, validb)
     args = [torch.from_numpy(a) for a in (pc, pv, mlen, allow)]
-    pos, planes, tot = teng.select_slots(*args, k=k, w=w, Br=Br, route="K3")
+    got = teng.select_slots(*args, k=k, w=w, Br=Br, route="K3")
     lo, hi, wpf = tk.values_select_plain(*args, k=k, w=w)
-    wpos, wplanes, wtot = tk.compact_rows(
+    want = tk.compact_rows(
         (wpf >> 16) != 0, wpf & 0xFFFF, [lo, hi] if k > 32 else [lo], Br)
-    assert torch.equal(tot, wtot) and int(tot.sum()) > 0
-    live = torch.arange(Br)[None, :] < tot.clamp(max=Br)[:, None]
-    assert torch.equal(pos[live], wpos[live])
-    assert len(planes) == len(wplanes) == (2 if k > 32 else 1)
-    for g, w_ in zip(planes, wplanes):
-        assert torch.equal(g[live], w_[live])
+    assert len(got[1]) == (2 if k > 32 else 1)
+    _assert_slots_equal(got, want, Br)
 
 
-@pytest.mark.parametrize("case", ["Br=0", "Br=100", "Br>L", "k=58", "k=0",
-                                  "shape", "meta"])
-def test_k3_wrapper_rejects_bad_input(case):
+def _assert_wrapper_rejects(wrapper, case, k, kmax):
+    """A slot-grid wrapper raises ValueError on an (8, 256) tile with one
+    bad input: Br 0, not a multiple of 128 or past L, k past kmax or 0,
+    validity bits of the wrong shape, or tensors on the meta device."""
     pc = torch.zeros((8, 64), dtype=torch.uint8)
     pv = torch.zeros((8, 32), dtype=torch.uint8)
     mlen = torch.zeros(8, dtype=torch.int32)
     allow = torch.zeros(8, dtype=torch.bool)
-    kw = {"k": 41, "w": 15, "Br": 128}
+    kw = {"k": k, "w": 15, "Br": 128}
     if case.startswith("Br"):
         kw["Br"] = {"Br=0": 0, "Br=100": 100, "Br>L": 384}[case]
-    elif case.startswith("k="):
-        kw["k"] = int(case[2:])
+    elif case.startswith("k"):
+        kw["k"] = kmax + 1 if case in ("k>max", f"k={kmax + 1}") else 0
     elif case == "shape":
         pv = pv[:, :20]
     else:
         pc, pv, mlen, allow = (t.to("meta") for t in (pc, pv, mlen, allow))
     with pytest.raises(ValueError):
-        tk.values_select(pc, pv, mlen, allow, **kw)
+        wrapper(pc, pv, mlen, allow, **kw)
 
 
-@pytest.mark.parametrize("route,k", [("K1", 31), ("K3", 31), ("K3", 41)])
+@pytest.mark.parametrize("case", ["Br=0", "Br=100", "Br>L", "k=58", "k=0",
+                                  "shape", "meta"])
+def test_k3_wrapper_rejects_bad_input(case):
+    _assert_wrapper_rejects(tk.values_select, case, 41, 57)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5: the slot grid of their routes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L", [384, 640, 1152])
+@pytest.mark.parametrize("k,w", [(15, 5), (31, 15)])
+def test_k4_select_slots_matches_dense_csum(k, w, L):
+    """select_slots on the K4 route, on the CPU, equals the dense K4
+    route: csum_slots over select_csum_plain's plane. The homopolymer
+    row's total passes its budget."""
+    args = _packed_edge_tile(np.random.default_rng(k + L), 8, L, k, w)
+    Br = tpack.v4_row_budget(L, w, tpack.default_budget_frac(w))
+    got = teng.select_slots(*args, k=k, w=w, Br=Br, route="K4")
+    plane, tot = tk.select_csum_plain(*args, k=k, w=w)
+    _assert_slots_equal(got, tk.csum_slots(args[0], plane, tot, k=k, Br=Br),
+                        Br)
+    assert bool((got[2] > Br).any())
+
+
+@pytest.mark.parametrize("Br", [128, 640])
+@pytest.mark.parametrize("k,w", [(21, 7), (31, 15), (41, 15), (56, 9)])
+def test_k5_select_slots_matches_dense_compaction(k, w, Br):
+    """select_slots on the K5 route, on the CPU, equals the dense K5
+    route: compact_rows over flag_mask and values_argmin_plain's planes
+    gathered at wp; L = 640, 13 rows (not a multiple of 8), Br = 128 and
+    Br = L."""
+    L = 640
+    pc, pv, mlen, allow = _packed_edge_tile(np.random.default_rng(k + Br),
+                                            5, L, k, w)
+    got = teng.select_slots(pc, pv, mlen, allow, k=k, w=w, Br=Br,
+                            route="K5")
+    planes, wp = tk.values_argmin_plain(pc, mlen, k=k, w=w)
+    flag = tk.flag_mask(wp, pv, mlen, allow, k=k, w=w)
+    want = tk.compact_rows(flag, wp, [p.gather(1, wp.long()) for p in planes],
+                           Br)
+    assert len(got[1]) == (2 if k > 32 else 1)
+    _assert_slots_equal(got, want, Br)
+
+
+@pytest.mark.parametrize("k,w,L", [(31, 15, 640), (15, 5, 384),
+                                   (32, 63, 256), (1, 1, 128), (21, 33, 1152)])
+def test_k4_plain_is_k1_function(k, w, L):
+    """The identity K4's redesign rests on: csum_slots over K4's plane is
+    K1's slot grid (select_compact_plain), at any 128 | L."""
+    args = _packed_edge_tile(np.random.default_rng(k + w + L), 8, L, k, w)
+    Br = 128
+    _assert_slots_equal(
+        _as_grid(tk.select_csum_slots_plain(*args, k=k, w=w, Br=Br)),
+        _as_grid(tk.select_compact_plain(*args, k=k, w=w, Br=Br)), Br)
+
+
+@pytest.mark.parametrize("k,w", [(21, 7), (31, 15), (33, 15), (41, 15),
+                                 (56, 9), (56, 1)])
+def test_k5_plain_is_k3_function(k, w):
+    """The identity K5's redesign rests on: the flag mask, gather at wp
+    and compaction over K5's planes are K3's slot grid
+    (values_select_compact_plain), any R, k <= 56."""
+    args = _packed_edge_tile(np.random.default_rng(k * w), 5, 640, k, w)
+    Br = 256
+    _assert_slots_equal(
+        _as_grid(tk.values_argmin_slots_plain(*args, k=k, w=w, Br=Br)),
+        _as_grid(tk.values_select_compact_plain(*args, k=k, w=w, Br=Br)), Br)
+
+
+@pytest.mark.parametrize("case", ["Br=0", "Br=100", "Br>L", "k>max", "k=0",
+                                  "shape", "meta"])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_k4_k5_wrappers_reject_bad_input(kernel, case):
+    wrapper, kmax = {"K4": (tk.select_csum, 32),
+                     "K5": (tk.values_argmin, 56)}[kernel]
+    _assert_wrapper_rejects(wrapper, case, 31, kmax)
+
+
+@pytest.mark.parametrize("route,k", [("K1", 31), ("K3", 31), ("K3", 41),
+                                     ("K5", 31), ("K5", 41)])
 def test_extract_step_ignores_dead_slot_positions(monkeypatch, route, k):
     """Slots at or past a row's total are unspecified (the kernels leave
     them as they were): the index build's entropy filter reads no

@@ -1,9 +1,10 @@
 """The engine's switches in deacon_tpu_torch against deacon_tpu, on the CPU,
 exact (every output is an integer).
 
-* K4 (select_csum) and K5 (values_argmin): the plain versions against the
-  JAX package's Pallas kernels in interpret mode; K4's consumer
-  (engine.csum_slots) against _stage_compact3 + _stage_hash_packed;
+* K4 (select_csum) and K5 (values_argmin): the dense plain versions of
+  the TPU kernels (select_csum_plain, values_argmin_plain) against the
+  JAX package's Pallas kernels in interpret mode; the plane's consumer
+  (kernels.csum_slots) against _stage_compact3 + _stage_hash_packed;
   kernels.flag_mask against _stage_flag_mask.
 * engine_arch and the per-tile routes against the JAX package's
   engine_arch over a grid of k, L, R and DEACON_ENGINE.
@@ -72,7 +73,7 @@ def test_k4_plain_matches_pallas_interpret(k, w, L):
     want_plane, want_tot = jpk.select_csum_packed(
         jnp.asarray(pci), jnp.asarray(pvi), jnp.asarray(mlen),
         jnp.asarray(allow), k=k, w=w, interpret=True)
-    plane, tot = tk.select_csum(*_t(pc, pv, mlen, allow), k=k, w=w)
+    plane, tot = tk.select_csum_plain(*_t(pc, pv, mlen, allow), k=k, w=w)
     np.testing.assert_array_equal(plane.numpy(), np.asarray(want_plane))
     np.testing.assert_array_equal(tot.numpy(),
                                   np.asarray(want_tot).reshape(-1))
@@ -89,8 +90,8 @@ def test_k4_plain_matches_pallas_interpret(k, w, L):
         np.asarray(hhi).astype(np.uint64) << np.uint64(32))
     srow, spos, svalid = (np.asarray(x) for x in (srow, spos, svalid))
     Br = L
-    pos, (val,), rt = teng.csum_slots(torch.from_numpy(pc), plane, tot, k=k,
-                                      Br=Br)
+    pos, (val,), rt = tk.csum_slots(torch.from_numpy(pc), plane, tot, k=k,
+                                    Br=Br)
     h = xxh3_64(val).numpy().view(np.uint64)
     for r in range(R):
         n = int(rt[r])
@@ -100,9 +101,9 @@ def test_k4_plain_matches_pallas_interpret(k, w, L):
 
 
 def test_k4_slots_match_oracle():
-    """K4's plain version and csum_slots on packed rows of real reads (N
-    runs, lowercase, a short row) give the oracle's minimizers, position
-    and hash, at a non-power-of-two L."""
+    """The K4 route (K4's plain version on the CPU) on packed rows of real
+    reads (N runs, lowercase, a short row) gives the oracle's minimizers,
+    position and hash, at a non-power-of-two L."""
     rng = np.random.default_rng(44)
     k, w, L = 31, 15, 640
     l = k + w - 1
@@ -135,7 +136,7 @@ def test_k5_plain_matches_pallas_interpret(k, w):
     limbs, want_wp = jpk.values_argmin_fused(
         jnp.asarray(codes), jnp.asarray(mlen), k=k, w=w, interpret=True)
     pc, _ = jeng.host_pack_bits(codes, validb)
-    planes, wp = tk.values_argmin(*_t(pc, mlen), k=k, w=w)
+    planes, wp = tk.values_argmin_plain(*_t(pc, mlen), k=k, w=w)
     assert len(planes) == (1 if k <= 32 else 2)
     np.testing.assert_array_equal(wp.numpy(), np.asarray(want_wp))
     v = [np.asarray(x).astype(np.uint64) for x in limbs]
@@ -151,7 +152,7 @@ def test_flag_mask_matches_jax_stage(k, w):
     R, L = 16, 512
     codes, validb, mlen, allow = _tile(rng, R, L, k, w)
     pc, pv = jeng.host_pack_bits(codes, validb)
-    _, wp = tk.values_argmin(*_t(pc, mlen), k=k, w=w)
+    _, wp = tk.values_argmin_plain(*_t(pc, mlen), k=k, w=w)
     want = jeng._stage_flag_mask(
         jnp.asarray(wp.numpy()), jnp.asarray(validb), jnp.asarray(mlen),
         jnp.asarray(allow), k=k, w=w)
