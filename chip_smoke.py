@@ -81,11 +81,35 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    ["cuda:0"] * 8) (two data rows, four table shards on the one card):
    every unit equal to phase 4's reference, K2 launched 4 times per
    batch, with Mbp/s, busy share, reruns, launches, the shard build's
-   seconds and GB and the peak memory.
+   seconds and GB and the peak memory;
+15. server and client at panhuman scale: phase 4's keys written with
+   ``write_index`` to an index file (~3.7 GB; the tempdir's free space
+   printed first, too little fails the phase), ``make_server`` on the
+   card in a thread (its /, /index_header and /index_version checked),
+   ``cli.main(["client", ...])`` over ~2 Mbp of phase 4's Illumina-like
+   reads, single and paired, search and deplete, on the binary and the
+   JSON wire, each output byte-identical to ``cli.main(["filter", ...])``
+   on the card from the same file (K1 and K2 launch there; the client
+   runs launch no kernel of the port: the server probes by searchsorted)
+   and each summary equal apart from the program, the index, the output
+   paths and the timings; printed: the file's write seconds, the
+   server's start (sha256, load_index, upload), the resident GB, the
+   peaks over the phase's start of the server's start and of the filter
+   runs, the probe's device ms and queries/s at 1e5 and 1e6 queries, the
+   client's Mbp/s (host-bound: NumPy oracle extraction) and each
+   filter's index load and Mbp/s;
+16. ``index diff`` on the card: the phase-15 file minus the 5 Mbp genome
+   as FASTA at k=31 (K1), equal to NumPy's setdiff1d of the keys and the
+   genome's oracle minimizers, with seconds and Mbp/s of the CLI and of
+   the FASTX part alone; at phase 6's size from a k=41 index with -k/-w
+   absent (K3) and under DEACON_PALLAS=1 at k=41 and 31 (K5), each
+   against setdiff1d and with only its kernel launched; ``index union``
+   and index-minus-index ``diff`` of two ~1e7-key indexes against
+   np.union1d and np.setdiff1d. The file is deleted after it.
 
 Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 14, 4, 4a, 4b, 4c, 13,
-4d, 5, 6, 7, 7b, 8. Each switch is set in os.environ only around its
-phase.
+4d, 15, 16, 5, 6, 7, 7b, 8. Each switch is set in os.environ only around
+its phase.
 
 ``python3 chip_smoke.py --k1`` runs phases 0 and 1 and then K1's part of
 phase 2 alone, printing its numbers as the last line and no result: the
@@ -1388,7 +1412,8 @@ def switch_window(table, k: int, reads, ref, n_bp: int, label: str,
 def panhuman_keys(rng, k: int, phase: str):
     """A seeded 5 Mbp genome and the index keys of phases 4 and 7: 4.1e8
     random u64 keys made on the card plus the genome's minimizers at k,
-    distinct and sorted. Returns (genome, keys, seconds to make them)."""
+    distinct and sorted. Returns (genome, its minimizers, keys, seconds
+    to make the keys)."""
     dev = torch.device("cuda")
     genome = rand_seq(rng, 5_000_000)
     g_hashes = dtt.compute_minimizer_hashes(genome, k, W_)
@@ -1400,20 +1425,23 @@ def panhuman_keys(rng, k: int, phase: str):
     keys_u = sorted_unique_keys(keys)
     del keys
     torch.cuda.synchronize()
-    return genome, keys_u, time.perf_counter() - t_keys
+    return genome, g_hashes, keys_u, time.perf_counter() - t_keys
 
 
-def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False):
+def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False,
+             served: bool = False):
     """Phase 4 (k=31) or 7 (k=41): a panhuman-scale table and ~20 Mbp of
     reads through DeviceDecider, every unit against the reference; then
     the same reads under each of ``windows`` ((label, switches, kernel)),
-    and with ``sharded`` phase 13 (K2's sharded form on the table and the
+    with ``sharded`` phase 13 (K2's sharded form on the table and the
     main-path stream) and window 4d (the reads through ShardedDecider on
-    a 2x4 mesh of the card), before the table is freed."""
+    a 2x4 mesh of the card), and with ``served`` phases 15 and 16 (the
+    keys written to an index file: the server and client, index diff and
+    union), before the table is freed."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    genome, keys_u, keys_s = panhuman_keys(rng, k, phase)
+    genome, g_hashes, keys_u, keys_s = panhuman_keys(rng, k, phase)
     dev = keys_u.device
     t_tab = time.perf_counter()
     decider = DeviceDecider(keys_u, k, W_, "cuda")
@@ -1485,6 +1513,8 @@ def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False):
         k2_sharded = phase13_k2_sharded(keys_u, table, stream)
         extra["4d"] = sharded_window(keys_u, k, (single, pairs, ont),
                                      (hits_ref, tot_ref), n_bp)
+    if served:
+        extra.update(file_phases(keys_u, genome, g_hashes, single, pairs))
     return {"numbers": numbers, "k2": k2, "launches": launches,
             "windows": extra, "k2_sharded": k2_sharded}
 
@@ -1774,7 +1804,7 @@ def k2_alone(rng) -> dict:
     only interfaces that earlier commits of the port have, so that a copy
     of this script times their K2 by the same measures."""
     t0 = time.perf_counter()
-    genome, keys_u, _ = panhuman_keys(rng, K_, "4")
+    genome, _, keys_u, _ = panhuman_keys(rng, K_, "4")
     decider = DeviceDecider(keys_u, K_, W_, "cuda")
     table = decider.pipe.table
     single, _, _ = make_reads(rng, genome)
@@ -1787,6 +1817,374 @@ def k2_alone(rng) -> dict:
     out["phase2"] = measure_k2(*dense_k2_stream())
     log("2-13 K2 alone", t0, **{n: json.dumps(v) for n, v in out.items()})
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the server and the index operations from a file
+# ---------------------------------------------------------------------------
+
+#: the summary's fields that name the program, the index or a timing
+SUMMARY_VOLATILE = ("version", "index", "output", "output2", "time",
+                    "seqs_per_second", "bp_per_second")
+
+
+def cli_timed(args: list[str]) -> tuple[float, str]:
+    """cli_main(args) with its standard error captured; raises on a
+    non-zero exit. Returns (wall seconds, standard error)."""
+    err = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(args)
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"CLI exit {rc}: {args}\n{err.getvalue()[-2000:]}")
+    return wall, err.getvalue()
+
+
+def summary_of(path: str) -> dict:
+    with open(path) as f:
+        s = json.load(f)
+    return {n: v for n, v in s.items() if n not in SUMMARY_VOLATILE}
+
+
+def http_get(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read()
+
+
+def file_phases(keys_u, genome: bytes, g_hashes, single, pairs) -> dict:
+    """Phases 15 and 16 on phase 4's keys, written once to an index file
+    in a tempdir (the free space printed first; too little fails the
+    phase) and deleted after phase 16."""
+    tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_file_")
+    try:
+        n = int(keys_u.numel())
+        need = 2 * (9 * n + 64) + (2 << 30)  # the file, the diff's output
+        free = shutil.disk_usage(tmp).free
+        print(f"[phase 15] tempdir {tmp}: {free / 1e9:.3f} GB free, "
+              f"{need / 1e9:.3f} GB needed", flush=True)
+        if free < need:
+            raise AssertionError(f"phase 15: {free / 1e9:.3f} GB free in "
+                                 f"{tmp}, {need / 1e9:.3f} GB needed")
+        idx = os.path.join(tmp, "panhuman.idx")
+        t = time.perf_counter()
+        keys_host = keys_u.cpu().numpy().view(np.uint64)  # u64 ascending
+        dtt.write_index(keys_host, dtt.IndexHeader.new(K_, W_), idx)
+        write_s = time.perf_counter() - t
+        out = {"15": phase15_server(idx, keys_u, keys_host, write_s, single,
+                                    pairs, tmp)}
+        out["16"] = phase16_index_ops(idx, keys_host, genome, g_hashes, tmp)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def probe_numbers(probe, keys_u, keys_host) -> dict:
+    """The server's probe on 1e5 and 1e6 queries, half of them keys:
+    device ms (CUDA events around the search on queries already on the
+    card) and queries/s of whole calls (upload from pinned memory, search,
+    copy back), each held against NumPy's searchsorted on the host keys."""
+    gen = torch.Generator(device=keys_u.device).manual_seed(SEED + 15)
+    out = {}
+    for n in (100_000, 1_000_000):
+        q = torch.randint(I64_MIN, (1 << 63) - 1, (n,), device=keys_u.device,
+                          dtype=torch.int64, generator=gen)
+        pick = torch.randint(0, keys_u.numel(), (n // 2,),
+                             device=keys_u.device, generator=gen)
+        q[: n // 2] = keys_u[pick]
+        q_host = q.cpu().numpy().view(np.uint64)
+        i = np.minimum(np.searchsorted(keys_host, q_host), keys_host.size - 1)
+        want = keys_host[i] == q_host
+        flipped = q ^ I64_MIN
+        if not np.array_equal(probe.member(flipped).cpu().numpy(), want):
+            raise AssertionError(f"probe on {n} queries differs")
+        ms = time_ms(lambda: probe.member(flipped), reps=20)
+        got = probe(q_host)
+        t = time.perf_counter()
+        for _ in range(5):
+            got = probe(q_host)
+        call_s = (time.perf_counter() - t) / 5
+        if not np.array_equal(got, want):
+            raise AssertionError(f"probe call on {n} queries differs")
+        out[str(n)] = {"device_ms": round(ms, 4),
+                       "call_ms": round(call_s * 1e3, 3),
+                       "queries_per_s": round(n / call_s),
+                       "members": int(want.sum())}
+    return out
+
+
+def phase15_server(idx: str, keys_u, keys_host, write_s: float, single,
+                   pairs, tmp: str) -> dict:
+    """Phase 15: the server on the card from the panhuman file, the CLI's
+    client against it over ~2 Mbp of phase 4's Illumina-like reads
+    (single and paired, search and deplete, binary and JSON wires), each
+    output byte-identical to ``filter`` on the card from the same file
+    (K2's path; the server's is a searchsorted probe) and each summary
+    equal apart from the program, the index, the output paths and the
+    timings."""
+    import threading
+
+    from deacon_tpu_torch.server.app import make_server
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t = time.perf_counter()
+    httpd = make_server(idx, 0, host="127.0.0.1", device="cuda")
+    start_s = time.perf_counter() - t
+    start_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+    state = httpd.state
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        root = http_get(url + "/").decode()
+        want_root = (f"Index loaded with {keys_u.numel()} minimizers and "
+                     "header: IndexHeader { format_version: 2, "
+                     f"kmer_length: {K_}, window_size: {W_} }}")
+        header = json.loads(http_get(url + "/index_header"))
+        version = http_get(url + "/index_version").decode()
+        name, sha = version.rsplit("@", 1)
+        if (root != want_root or header != {"format_version": 2,
+                                            "kmer_length": K_,
+                                            "window_size": W_}
+                or name != idx or len(sha) != 64):
+            raise AssertionError(f"phase 15 endpoints: {root!r} {header} "
+                                 f"{version!r}")
+        resident_gb = state.probe.nbytes / 1e9
+        probe = probe_numbers(state.probe, keys_u, keys_host)
+        # ~1 Mbp of single reads and ~1 Mbp of pairs
+        reads = {"s.fq": [(b"s%d" % i, r) for i, r in
+                          enumerate(single[:6700])]}
+        reads["r1.fq"] = [(b"p%d/1" % i, a)
+                          for i, (a, _) in enumerate(pairs[:3350])]
+        reads["r2.fq"] = [(b"p%d/2" % i, b)
+                          for i, (_, b) in enumerate(pairs[:3350])]
+        for fname, recs in reads.items():
+            write_fastq(os.path.join(tmp, fname), recs)
+        bp = {"single": sum(len(r) for _, r in reads["s.fq"]),
+              "paired": sum(len(r) for f in ("r1.fq", "r2.fq")
+                            for _, r in reads[f])}
+        runs = []
+        launches = {"filter": None, "client": None}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        filters = {}
+        for mode in ("single", "paired"):
+            inputs = ([os.path.join(tmp, "s.fq")] if mode == "single" else
+                      [os.path.join(tmp, f) for f in ("r1.fq", "r2.fq")])
+            for deplete in (False, True):
+                tag = f"{mode}{'_deplete' if deplete else ''}"
+                flags = ["--deplete"] if deplete else []
+                o = os.path.join(tmp, f"f_{tag}.fq")
+                sm = o + ".json"
+                wall, err = cli_timed(["filter", idx, *inputs, "-o", o, "-s",
+                                       sm, "--device", "cuda", *flags])
+                load = [ln for ln in err.splitlines()
+                        if ln.startswith("Loaded index")][0]
+                filters[tag] = (read_bytes(o), summary_of(sm))
+                runs.append({"run": f"filter {tag}", "s": round(wall, 3),
+                             "load_line": load,
+                             "mbp_per_s": round(bp[mode] / 1e6 / wall, 3)})
+        launches["filter"] = launch_counts()
+        filter_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+        check_route(launches["filter"], "K1", "phase 15 filter")
+        reset_launches()
+        clients = 0
+        for wire in ("binary", "json"):
+            for tag, (want_out, want_summary) in filters.items():
+                mode = "paired" if tag.startswith("paired") else "single"
+                inputs = ([os.path.join(tmp, "s.fq")] if mode == "single"
+                          else [os.path.join(tmp, f)
+                                for f in ("r1.fq", "r2.fq")])
+                flags = ["--deplete"] if "deplete" in tag else []
+                o = os.path.join(tmp, f"c_{wire}_{tag}.fq")
+                sm = o + ".json"
+                old = os.environ.pop("DEACON_WIRE", None)
+                if wire == "json":
+                    os.environ["DEACON_WIRE"] = "json"
+                try:
+                    wall, _ = cli_timed(["client", url, *inputs, "-o", o,
+                                         "-s", sm, "-q", *flags])
+                finally:
+                    os.environ.pop("DEACON_WIRE", None)
+                    if old is not None:
+                        os.environ["DEACON_WIRE"] = old
+                with open(sm) as f:
+                    summ_index = json.load(f)["index"]
+                if (read_bytes(o) != want_out
+                        or summary_of(sm) != want_summary
+                        or summ_index != f"{url}:{version}"):
+                    raise AssertionError(f"phase 15: client {wire} {tag} "
+                                         "differs from filter")
+                clients += 1
+                runs.append({"run": f"client {wire} {tag}",
+                             "s": round(wall, 3),
+                             "mbp_per_s_host_bound": round(
+                                 bp[mode] / 1e6 / wall, 3)})
+        launches["client"] = launch_counts()
+        if any(launches["client"].values()):
+            raise AssertionError("phase 15: the server's probe launched a "
+                                 f"kernel of the port: {launches['client']}")
+        if not any(filters[t][0] for t in filters):
+            raise AssertionError("phase 15: every output is empty")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    numbers = {
+        "keys": int(keys_u.numel()),
+        "file_gb": round(os.path.getsize(idx) / 1e9, 3),
+        "write_index_s": round(write_s, 3),
+        "server_start_s": round(start_s, 3),
+        **{n: round(v, 3) for n, v in state.timings.items()},
+        "resident_gb": round(resident_gb, 3),
+        "start_peak_gb": round(start_peak_gb, 3),
+        "filter_peak_gb": round(filter_peak_gb, 3),
+        "probe": probe, "mbp": {m: v / 1e6 for m, v in bp.items()},
+        "client_runs": clients, "runs": runs, "launches": launches,
+    }
+    del state, httpd
+    torch.cuda.empty_cache()
+    log("15 server and client at panhuman scale", t0, **{
+        n: json.dumps(v) for n, v in numbers.items()})
+    return numbers
+
+
+def sorted_unique(x: np.ndarray) -> np.ndarray:
+    """np.unique by a sort and an adjacent compare: the data of phase 16
+    (np.unique itself is the reference's slow part there)."""
+    x = np.sort(x)
+    return x[np.concatenate([[True], x[1:] != x[:-1]])]
+
+
+def diff_cli(first: str, second: str, out: str, what: str, *flags: str):
+    """``index diff`` on the card; -> (seconds, launches, the output's keys,
+    standard error)."""
+    reset_launches()
+    wall, err = cli_timed(["index", "diff", first, second, "-o", out,
+                           "--device", "cuda", *flags])
+    launches = launch_counts()
+    if f"Second index: processing FASTX from file" not in err:
+        raise AssertionError(f"{what}: not a FASTX diff:\n{err[-1000:]}")
+    return wall, launches, dtt.load_index(out).hashes, err
+
+
+def check_launches(launches: dict, kernel: str, what: str) -> None:
+    """kernel launched, no other kernel of the port."""
+    if launches[kernel] <= 0 or any(v for n, v in launches.items()
+                                    if n != kernel):
+        raise AssertionError(f"{what}: expected {kernel} only, launches "
+                             f"{launches}")
+
+
+def phase16_index_ops(idx: str, keys_host, genome: bytes, g_hashes,
+                      tmp: str) -> dict:
+    """Phase 16: ``index diff`` of the panhuman file minus the 5 Mbp
+    genome as FASTA at k=31 (K1), equal to NumPy's setdiff1d of the keys
+    and the genome's oracle minimizers; the same at phase 6's size from a
+    k=41 index with -k/-w absent (K3) and under DEACON_PALLAS=1 at k=41
+    and 31 (K5); ``index union`` and index-minus-index ``diff`` of two
+    ~1e7-key indexes against np.union1d and np.setdiff1d."""
+    from deacon_tpu_torch.index.build import _stream_diff_fastx
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 16)
+    numbers = {}
+    fa = os.path.join(tmp, "genome.fa")
+    write_fasta(fa, [(b"genome", genome)])
+    out = os.path.join(tmp, "diff.idx")
+    wall, launches, got, err = diff_cli(idx, fa, out, "panhuman diff", "-k",
+                                        str(K_), "-w", str(W_))
+    t = time.perf_counter()
+    want = np.setdiff1d(keys_host, g_hashes, assume_unique=True)
+    setdiff_s = time.perf_counter() - t
+    if not np.array_equal(got, want):
+        raise AssertionError(f"panhuman diff: {got.size} keys, NumPy "
+                             f"setdiff1d {want.size}")
+    check_launches(launches, "K1", "panhuman diff")
+    os.unlink(out)
+    del got, want
+    # the FASTX part alone: the keys' upload, extraction, keep-mask
+    header = dtt.IndexHeader.new(K_, W_)
+    t = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rest = _stream_diff_fastx(fa, K_, W_, header, keys_host, "cuda")
+    stream_s = time.perf_counter() - t
+    removed = keys_host.size - rest.size
+    del rest
+    numbers["panhuman_k31"] = {
+        "keys": int(keys_host.size), "genome_minimizers": int(g_hashes.size),
+        "removed": int(removed), "cli_s": round(wall, 3),
+        "cli_mbp_per_s": round(len(genome) / 1e6 / wall, 3),
+        "fastx_part_s": round(stream_s, 3),
+        "fastx_part_mbp_per_s": round(len(genome) / 1e6 / stream_s, 3),
+        "numpy_setdiff1d_s": round(setdiff_s, 3), "launches": launches}
+    if removed != g_hashes.size:
+        raise AssertionError(f"panhuman diff: removed {removed} of "
+                             f"{g_hashes.size}")
+    # phase 6's size: six dirty records, the index of all six plus 2e6
+    # random keys, minus four of them as FASTA
+    recs = dirty_records(rng, 6, 40_000, 120_000)
+    sub = os.path.join(tmp, "sub.fa")
+    write_fasta(sub, recs[:4])
+    noise = rng.integers(0, 2**64, 2_000_000, dtype=np.uint64)
+    for k, env, kernel in ((K_WIDE, {}, "K3"),
+                           (K_WIDE, {"DEACON_PALLAS": "1"}, "K5"),
+                           (K_, {"DEACON_PALLAS": "1"}, "K5")):
+        mins = [dtt.compute_minimizer_hashes(s, k, W_) for _, s in recs]
+        keys = sorted_unique(np.concatenate([*mins, noise]))
+        first = os.path.join(tmp, f"k{k}.idx")
+        dtt.write_index(keys, dtt.IndexHeader.new(k, W_), first)
+        with switches(**env):
+            wall, launches, got, err = diff_cli(first, sub, out,
+                                                f"diff k={k} {env}")
+        if f"(k={k}, w={W_})" not in err:
+            raise AssertionError(f"diff k={k}: k and w not auto-detected")
+        want = np.setdiff1d(keys, sorted_unique(np.concatenate(mins[:4])),
+                            assume_unique=True)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"diff k={k} {env}: {got.size} keys, NumPy "
+                                 f"setdiff1d {want.size}")
+        check_launches(launches, kernel, f"diff k={k} {env}")
+        bp = sum(len(s) for _, s in recs[:4])
+        numbers[f"k{k}_{kernel}"] = {
+            "keys": int(keys.size), "removed": int(keys.size - got.size),
+            "fastx_mbp": bp / 1e6, "cli_s": round(wall, 3),
+            "cli_mbp_per_s": round(bp / 1e6 / wall, 3),
+            "launches": launches}
+    # union and index-minus-index diff of two ~1e7-key indexes
+    a = sorted_unique(rng.integers(0, 2**64, 10_000_000, dtype=np.uint64))
+    b = sorted_unique(np.concatenate([
+        a[rng.integers(0, a.size, 3_000_000)],
+        rng.integers(0, 2**64, 7_000_000, dtype=np.uint64)]))
+    ia, ib, iu = (os.path.join(tmp, f) for f in ("a.idx", "b.idx", "u.idx"))
+    dtt.write_index(a, dtt.IndexHeader.new(K_, W_), ia)
+    dtt.write_index(b, dtt.IndexHeader.new(K_, W_), ib)
+    union_s, _ = cli_timed(["index", "union", ia, ib, "-o", iu])
+    t = time.perf_counter()
+    want = np.union1d(a, b)
+    union1d_s = time.perf_counter() - t
+    if not np.array_equal(dtt.load_index(iu).hashes, want):
+        raise AssertionError("index union differs from np.union1d")
+    reset_launches()
+    idiff_s, _ = cli_timed(["index", "diff", ia, ib, "-o", out])
+    if not np.array_equal(dtt.load_index(out).hashes,
+                          np.setdiff1d(a, b, assume_unique=True)):
+        raise AssertionError("index-index diff differs from np.setdiff1d")
+    if any(launch_counts().values()):
+        raise AssertionError("index-index diff launched a kernel")
+    numbers["union_1e7"] = {"keys": [int(a.size), int(b.size)],
+                            "union_s": round(union_s, 3),
+                            "numpy_union1d_s": round(union1d_s, 3),
+                            "numpy": np.__version__,
+                            "index_diff_s": round(idiff_s, 3)}
+    log("16 index union and diff on the card", t0, **{
+        n: json.dumps(v) for n, v in numbers.items()})
+    return numbers
 
 
 # ---------------------------------------------------------------------------
@@ -1943,18 +2341,20 @@ def main() -> int:
     p4 = panhuman(rng, K_, "4", windows=(
         ("4a", {"DEACON_TPU_TILES": K4_TILES_ENV}, "K4"),
         ("4b", {"DEACON_PALLAS": "1"}, "K5"),
-        ("4c", {}, "K1")), sharded=True)
+        ("4c", {}, "K1")), sharded=True, served=True)
     k3 = phase5_k3(rng)
     launches6 = phase6_wide_cli(rng)
     p7 = panhuman(rng, K_WIDE, "7", windows=(
         ("7b", {"DEACON_PALLAS": "1"}, "K5"),))
     phase8_index_scale(rng)
     k1, k2, k2s = p2["k1"], p4["k2"], p4["k2_sharded"]
+    p15, p16 = p4["windows"]["15"], p4["windows"]["16"]
     kernels = [
         {"name": "K1 select_compact", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/extract.cu",
          "replaces": "deacon_tpu/ops/pallas_kernels.py:736",
          "launches": p4["launches"]["K1"],
+         "index_diff_launches": p16["panhuman_k31"]["launches"]["K1"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
@@ -1976,6 +2376,7 @@ def main() -> int:
          "source": "deacon_tpu_torch/csrc/values_select.cu",
          "replaces": "deacon_tpu/ops/pallas_kernels.py:312",
          "launches": p7["launches"]["K3"],
+         "index_diff_launches": p16["k41_K3"]["launches"]["K3"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None,
@@ -1998,6 +2399,8 @@ def main() -> int:
          "source": "deacon_tpu_torch/csrc/values_argmin.cu",
          "replaces": "deacon_tpu/ops/pallas_kernels.py:793",
          "launches": p4["windows"]["4b"]["timed_window_launches"]["K5"],
+         "index_diff_launches": p16["k41_K5"]["launches"]["K5"]
+         + p16["k31_K5"]["launches"]["K5"],
          "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
          "bound_by": k5["bound_by"], "library_ms": None,
@@ -2031,14 +2434,18 @@ def main() -> int:
          "unsharded_cold_ms": k2s["unsharded_cold_ms"],
          "ratio_to_unsharded": k2s["S4"]["ratio_to_unsharded"]},
     ]
-    if min(k["launches"] for k in kernels) <= 0:
+    if min(k["launches"] for k in kernels) <= 0 or min(
+            k.get("index_diff_launches", 1) for k in kernels) <= 0:
         raise AssertionError("a kernel of the main path was never launched")
     launches14 = {n: v for n, v in p14.items() if n.endswith("launches")}
+    launches16 = {n: v["launches"] for n, v in p16.items() if "launches" in v}
     print(f"[total] {time.perf_counter() - t_all:.3f} s "
           f"phase3_launches={json.dumps(launches3)} "
           f"phase6_launches={json.dumps(launches6)} "
           f"phase11_launches={json.dumps(p11['filter'])} "
           f"phase14_launches={json.dumps(launches14)} "
+          f"phase15_launches={json.dumps(p15['launches'])} "
+          f"phase16_launches={json.dumps(launches16)} "
           f"window_7b_launches="
           f"{json.dumps(p7['windows']['7b']['timed_window_launches'])}",
           flush=True)

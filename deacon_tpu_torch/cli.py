@@ -1,7 +1,9 @@
-"""Command-line interface of the port: ``index build``, ``index info`` and
-``filter``, with the flags of the JAX package's (ref: src/main.rs:9-234)
-and ``--device cuda|cpu`` (default cuda) for ``index build`` and
-``filter``, and ``--mesh DATAxSHARD`` for ``filter``."""
+"""Command-line interface of the port: ``index build|info|union|diff``,
+``filter``, ``server`` and ``client``, with the flags of the JAX
+package's (ref: src/main.rs:9-234), ``--device cuda|cpu`` (default cuda)
+for ``index build``, ``index diff``, ``filter`` and ``server``, and
+``--mesh DATAxSHARD`` for ``filter``. The JAX server's ``--device
+jax|host`` is ``cuda|cpu`` here."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from .constants import (
     DEFAULT_REL_THRESHOLD,
     DEFAULT_WINDOW_SIZE,
     MAX_K_BUILD,
+    MAX_K_DIFF_FASTX,
     TOOL_NAME,
     VERSION,
 )
@@ -34,6 +37,49 @@ def _k_build(value: str) -> int:
     if not 1 <= v <= MAX_K_BUILD:  # ref: src/main.rs:166
         raise argparse.ArgumentTypeError(f"{v} is not in 1..={MAX_K_BUILD}")
     return v
+
+
+def _k_diff(value: str) -> int:
+    v = int(value)
+    if not 1 <= v <= MAX_K_DIFF_FASTX:  # ref: src/main.rs:223
+        raise argparse.ArgumentTypeError(
+            f"{v} is not in 1..={MAX_K_DIFF_FASTX}")
+    return v
+
+
+def _add_filter_like_args(p: argparse.ArgumentParser) -> None:
+    """The flags of filter and client (ref: src/main.rs:24-155)."""
+    p.add_argument("input", nargs="?", default="-",
+                   help="path to fastx file (or - for stdin)")
+    p.add_argument("input2", nargs="?", default=None,
+                   help="optional second paired fastx file (or - for interleaved stdin)")
+    p.add_argument("-o", "--output", default="-",
+                   help="output fastx path (- for stdout; detects .gz/.zst/.xz)")
+    p.add_argument("-O", "--output2", default=None,
+                   help="optional second paired output fastx path")
+    p.add_argument("-a", "--abs-threshold", type=_abs_threshold,
+                   default=DEFAULT_ABS_THRESHOLD,
+                   help="minimum absolute number of minimizer hits for a match")
+    p.add_argument("-r", "--rel-threshold", type=float,
+                   default=DEFAULT_REL_THRESHOLD,
+                   help="minimum relative proportion (0.0-1.0) of minimizer hits")
+    p.add_argument("-p", "--prefix-length", type=int, default=0,
+                   help="search only the first N nucleotides (0 = entire sequence)")
+    p.add_argument("-d", "--deplete", action="store_true",
+                   help="discard matching sequences")
+    p.add_argument("-R", "--rename", action="store_true",
+                   help="replace sequence headers with incrementing numbers")
+    p.add_argument("-s", "--summary", default=None,
+                   help="path to JSON summary output file")
+    p.add_argument("-t", "--threads", type=int, default=8,
+                   help="number of execution threads (0 = auto)")
+    p.add_argument("--compression-level", type=int,
+                   default=DEFAULT_COMPRESSION_LEVEL,
+                   help="output compression level (1-9 gz & xz; 1-22 zstd)")
+    p.add_argument("--debug", action="store_true",
+                   help="output sequences with minimizer hits to stderr")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="suppress progress reporting")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,42 +118,29 @@ def build_parser() -> argparse.ArgumentParser:
     p_info = isub.add_parser("info", help="show index information")
     p_info.add_argument("index", help="path to index file")
 
+    p_union = isub.add_parser("union",
+                              help="combine minimizer indexes (A ∪ B…)")
+    p_union.add_argument("inputs", nargs="+", help="input index file(s)")
+    p_union.add_argument("-o", "--output", default="-")
+    p_union.add_argument("-c", "--capacity", dest="capacity_millions",
+                         type=int, default=None)
+    p_diff = isub.add_parser("diff", help="subtract minimizers (A - B)")
+    p_diff.add_argument("first", help="first index file")
+    p_diff.add_argument("second", help="second index file or FASTX file "
+                                       "(- for stdin)")
+    p_diff.add_argument("-k", "--kmer-length", type=_k_diff, default=None)
+    p_diff.add_argument("-w", "--window-size", type=int, default=None)
+    p_diff.add_argument("-o", "--output", default="-")
+    p_diff.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="device of the FASTX minimizer extraction "
+                             "(default cuda; never falls back)")
+
     p = sub.add_parser(
         "filter",
         help="keep or discard fastx records with sufficient minimizer hits",
     )
     p.add_argument("index", help="path to minimizer index file")
-    p.add_argument("input", nargs="?", default="-",
-                   help="path to fastx file (or - for stdin)")
-    p.add_argument("input2", nargs="?", default=None,
-                   help="optional second paired fastx file (or - for interleaved stdin)")
-    p.add_argument("-o", "--output", default="-",
-                   help="output fastx path (- for stdout; detects .gz/.zst/.xz)")
-    p.add_argument("-O", "--output2", default=None,
-                   help="optional second paired output fastx path")
-    p.add_argument("-a", "--abs-threshold", type=_abs_threshold,
-                   default=DEFAULT_ABS_THRESHOLD,
-                   help="minimum absolute number of minimizer hits for a match")
-    p.add_argument("-r", "--rel-threshold", type=float,
-                   default=DEFAULT_REL_THRESHOLD,
-                   help="minimum relative proportion (0.0-1.0) of minimizer hits")
-    p.add_argument("-p", "--prefix-length", type=int, default=0,
-                   help="search only the first N nucleotides (0 = entire sequence)")
-    p.add_argument("-d", "--deplete", action="store_true",
-                   help="discard matching sequences")
-    p.add_argument("-R", "--rename", action="store_true",
-                   help="replace sequence headers with incrementing numbers")
-    p.add_argument("-s", "--summary", default=None,
-                   help="path to JSON summary output file")
-    p.add_argument("-t", "--threads", type=int, default=8,
-                   help="number of execution threads (0 = auto)")
-    p.add_argument("--compression-level", type=int,
-                   default=DEFAULT_COMPRESSION_LEVEL,
-                   help="output compression level (1-9 gz & xz; 1-22 zstd)")
-    p.add_argument("--debug", action="store_true",
-                   help="output sequences with minimizer hits to stderr")
-    p.add_argument("-q", "--quiet", action="store_true",
-                   help="suppress progress reporting")
+    _add_filter_like_args(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (default cuda; never falls back)")
     p.add_argument("--mesh", default=None, metavar="DATAxSHARD",
@@ -115,6 +148,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "over DATA rows, the index range-sharded over SHARD "
                         "devices; needs DATA*SHARD distinct cards on cuda, "
                         "repeats the CPU on cpu")
+
+    p_server = sub.add_parser(
+        "server", help="serve a pre-loaded minimizer index over HTTP")
+    p_server.add_argument("index", help="path to minimizer index file")
+    p_server.add_argument("-p", "--port", type=int, default=8888)
+    p_server.add_argument("--host", default="0.0.0.0")
+    p_server.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                          help="device holding the index's keys for the "
+                               "membership probes (default cuda; never "
+                               "falls back)")
+    p_server.add_argument("--mesh", default=None, metavar="DATAxSHARD",
+                          help="not ported yet: exits 1")
+
+    p_client = sub.add_parser(
+        "client",
+        help="filter by streaming pre-hashed minimizers to a server")
+    p_client.add_argument("server_address",
+                          help="server address (including port)")
+    _add_filter_like_args(p_client)
+    p_client.add_argument("--mesh", default=None, metavar="DATAxSHARD",
+                          help="ignored with a warning: decisions run on "
+                               "the server")
     return parser
 
 
@@ -124,6 +179,12 @@ def main(argv: list[str] | None = None) -> int:
         if args.command == "index":
             _run_index(args)
             return 0
+        if args.command == "server":
+            from .server.app import run_server
+
+            run_server(args.index, args.port, host=args.host,
+                       device=args.device, mesh=args.mesh)
+            return 0
         from .config import FilterConfig
 
         if args.output2 is not None and args.input2 is None:
@@ -132,8 +193,10 @@ def main(argv: list[str] | None = None) -> int:
                 "provided. --output2 will be ignored.",
                 file=sys.stderr,
             )  # ref: src/main.rs:320-324
+        client = args.command == "client"
         FilterConfig(
-            minimizers_path=args.index,
+            minimizers_path=None if client else args.index,
+            server_address=args.server_address if client else None,
             input_path=args.input,
             input2_path=args.input2,
             output_path=args.output,
@@ -148,8 +211,10 @@ def main(argv: list[str] | None = None) -> int:
             compression_level=args.compression_level,
             debug=args.debug,
             quiet=args.quiet,
-            device=args.device,
             mesh=args.mesh,
+            # the client has no device: it extracts on the host and the
+            # server decides on its own
+            **({} if client else {"device": args.device}),
         ).execute()
     except BrokenPipeError:
         return 0
@@ -167,6 +232,17 @@ def _run_index(args) -> None:
 
     if args.index_command == "info":
         index_ops.info(args.index)
+        return
+    if args.index_command == "union":
+        index_ops.union(args.inputs,
+                        None if args.output == "-" else args.output,
+                        args.capacity_millions)
+        return
+    if args.index_command == "diff":
+        index_ops.diff(args.first, args.second, args.kmer_length,
+                       args.window_size,
+                       None if args.output == "-" else args.output,
+                       device=args.device)
         return
     from .config import IndexConfig
 

@@ -20,7 +20,9 @@ from .constants import (
 class FilterConfig:
     """ref: src/lib.rs:39-109 (defaults from FilterConfig::new)."""
 
-    minimizers_path: str
+    minimizers_path: str | None = None
+    #: a server's address (``client``): decisions on the server's index
+    server_address: str | None = None
     input_path: str = "-"
     input2_path: str | None = None
     output_path: str = "-"

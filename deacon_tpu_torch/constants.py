@@ -13,9 +13,11 @@ INDEX_FORMAT_VERSION = 2
 
 # k-mer length limits: filtering needs the invalid-base bitmask (k <= 56,
 # ref: src/filter_common.rs:230); index build accepts 1..=57
-# (ref: src/main.rs:166)
+# (ref: src/main.rs:166) and diff-vs-FASTX 1..=32 by -k
+# (ref: src/main.rs:223)
 MAX_K_FILTER = 56
 MAX_K_BUILD = 57
+MAX_K_DIFF_FASTX = 32
 
 # Filtering defaults (ref: src/lib.rs:89-109)
 DEFAULT_ABS_THRESHOLD = 2
@@ -27,6 +29,9 @@ FILTER_BATCH = 10_000
 
 # Records per index-build batch
 INDEX_BUILD_BATCH = 10_000
+
+# Records per batch of ``index diff`` against a FASTX stream
+DIFF_STREAM_BATCH = 1_000
 
 # Preallocated capacity (millions of minimizers) reported by index build
 DEFAULT_CAPACITY_MILLIONS = 400

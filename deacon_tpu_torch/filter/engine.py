@@ -1,11 +1,13 @@
-"""Local filter engine: streaming batch pipeline over FASTX input.
+"""Filter engine: streaming batch pipeline over FASTX input.
 
 Orchestration mirrors the reference engines' semantics (banner, index load,
 three input modes, per-batch decide + ordered write, stats, summary; ref:
-src/local_filter.rs:575-824): records are read in batches, minimizers are
-extracted, probed and counted for the whole batch on the device, and the
-records are written in order. Up to ``resolve_depth`` batches stay in
-flight while the host reads ahead and writes behind.
+src/local_filter.rs:575-824, src/remote_filter.rs:431-693): records are
+read in batches, minimizers are extracted, probed and counted for the
+whole batch on the device, and the records are written in order. Up to
+``resolve_depth`` batches stay in flight while the host reads ahead and
+writes behind. In client mode (``server_address``) the host extracts each
+batch's minimizers and a server decides (RemoteDecider).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..io.writers import FastxWriter, format_record, get_writer
 from ..ops import host_extract
 from ..ops.engine import DevicePipeline
 from ..parallel.sharded import ShardedPipeline, make_mesh, parse_mesh_spec
+from ..server.client import RemoteBackend
 from .backend import LocalBackend
 from .progress import FilterStats, Spinner
 from .summary import build_summary, write_summary
@@ -94,6 +97,32 @@ class HostDecider:
         return lambda: result
 
 
+class RemoteDecider(HostDecider):
+    """HostDecider whose launches run extraction and the POST to the
+    server on a small thread pool (DEACON_CLIENT_INFLIGHT workers, default
+    3), overlapping them with the write-back of earlier batches; the
+    engine loop resolves batches in order (ref: src/remote_filter.rs:
+    731-792 is sequential here)."""
+
+    def __init__(self, backend, k: int, w: int):
+        import concurrent.futures
+        import os
+
+        super().__init__(backend, k, w)
+        workers = max(1, int(os.environ.get("DEACON_CLIENT_INFLIGHT", "3")))
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=workers)
+        self.resolve_depth = workers
+
+    def launch_unpaired(self, seqs, prefix_length, cfg):
+        return self._pool.submit(self.decide_unpaired, seqs, prefix_length,
+                                 cfg).result
+
+    def launch_paired(self, pairs, prefix_length, cfg):
+        return self._pool.submit(self.decide_paired, pairs, prefix_length,
+                                 cfg).result
+
+
 def _decisions_from_counts(hits, totals, cfg: FilterConfig):
     """Vectorized (keep, hits, total, kmers=[]) decisions from counts."""
     keep = keep_mask_batch(
@@ -152,7 +181,13 @@ def filter_mesh(mesh_spec: str, device: str):
 def make_decider(index, backend, k: int, w: int, cfg: FilterConfig):
     """The device pipeline on cfg.device, over cfg.mesh when it is set;
     the host decider for --debug (its per-record k-mer dump needs host
-    extraction; a mesh is still checked)."""
+    extraction; a mesh is still checked). In client mode (no index) the
+    RemoteDecider: host extraction, decisions on the server."""
+    if index is None:
+        if cfg.mesh:
+            print("Warning: --mesh is ignored in client mode (decisions run "
+                  "on the server).", file=sys.stderr)
+        return RemoteDecider(backend, k, w)
     mesh = filter_mesh(cfg.mesh, cfg.device) if cfg.mesh else None
     if cfg.debug:
         return HostDecider(backend, k, w)
@@ -168,6 +203,8 @@ def _engine_desc(decider) -> str:
                 f"shard={shape['shard']})")
     if isinstance(decider, DeviceDecider):
         return f"device pipeline ({decider.pipe.device})"
+    if isinstance(decider, RemoteDecider):
+        return "remote server decisions (NumPy oracle extraction)"
     return "host batch engine (NumPy oracle extraction)"
 
 
@@ -199,15 +236,25 @@ def run(config: FilterConfig):
             f"options: {', '.join(options)}"
         )
 
-    warn_if_foreign_index(config.minimizers_path)
-    index = load_index(config.minimizers_path)
-    header = index.header
+    if config.minimizers_path is not None:
+        warn_if_foreign_index(config.minimizers_path)
+        index = load_index(config.minimizers_path)
+        header = index.header
+        backend = LocalBackend(index)
+        summary_index = str(config.minimizers_path)
+    elif config.server_address is not None:
+        index = None
+        backend = RemoteBackend(config.server_address)
+        header = backend.header
+        summary_index = backend.summary_index()
+    else:
+        raise ValueError("No index path or server address provided")
     k, w = header.kmer_length, header.window_size
     load_time = time.monotonic() - start_time
     if not quiet:
         _eprint(f"Loaded index (k={k}, w={w}) in {_fmt_duration(load_time)}")
 
-    decider = make_decider(index, LocalBackend(index), k, w, config)
+    decider = make_decider(index, backend, k, w, config)
     if not quiet:
         _eprint(f"Engine: {_engine_desc(decider)}")
 
@@ -356,12 +403,13 @@ def run(config: FilterConfig):
     writer.finish()
     if writer2 is not None:
         writer2.finish()
-    _finish_run(config, stats, start_time, quiet, tool_version, k, w)
+    _finish_run(config, stats, start_time, quiet, tool_version,
+                summary_index, k, w)
 
 
 def _finish_run(
     config: FilterConfig, stats: FilterStats, start_time: float,
-    quiet: bool, tool_version: str, k: int, w: int,
+    quiet: bool, tool_version: str, summary_index: str, k: int, w: int,
 ) -> None:
     """Final stderr stats line + optional summary JSON (C11/C12)."""
     total_time = time.monotonic() - start_time
@@ -382,7 +430,7 @@ def _finish_run(
     if config.summary_path is not None:
         summary = build_summary(
             version=tool_version,
-            index=str(config.minimizers_path),
+            index=summary_index,
             input=config.input_path,
             input2=config.input2_path,
             output=config.output_path,

@@ -1,10 +1,14 @@
-"""Index operations: build and info (ref: src/index.rs:167-308, 539-560).
+"""Index operations: build, info, union and diff
+(ref: src/index.rs:167-664).
 
 ``build`` extracts every record's minimizer hashes on the device
 (ops/engine.IndexBuildPipeline) and keeps the distinct ones on the device
 (ops/engine.DistinctHashes); the sorted set goes to disk once, in the
-reference's format (index/store.py). Its standard-error lines are those of
-the JAX package's ``index build``.
+reference's format (index/store.py). ``diff`` against a FASTX stream
+takes the same extraction and clears the first index's keys on the device
+(ops/engine.KeptKeys). ``union`` and index-minus-index ``diff`` are host
+set operations on the sorted keys (a merge, np.setdiff1d). Their
+standard-error lines are those of the JAX package's commands.
 """
 
 from __future__ import annotations
@@ -12,11 +16,18 @@ from __future__ import annotations
 import sys
 import time
 
+import numpy as np
+
 from ..config import IndexConfig
-from ..constants import INDEX_BUILD_BATCH, TOOL_NAME, VERSION
+from ..constants import DIFF_STREAM_BATCH, INDEX_BUILD_BATCH, TOOL_NAME, VERSION
+from ..device import resolve_device
 from ..io.fastx import FastxReader, read_batch
-from ..ops.engine import DistinctHashes, IndexBuildPipeline
+from ..ops.engine import DistinctHashes, IndexBuildPipeline, KeptKeys
 from . import store
+
+
+#: ``index diff`` against FASTX reports its progress every this many bases
+PROGRESS_BP = 1_000_000_000
 
 
 def _eprint(*args) -> None:
@@ -88,3 +99,161 @@ def info(index_path: str) -> None:
             "built by upstream deacon; selection schemes differ, see INTEROP.md)"
         )
     _eprint(f"Retrieved index info in {time.monotonic() - start:.2f}s")
+
+
+def _merge_sorted_unique(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Union of two sorted-unique u64 arrays: their concatenation is two
+    ascending runs, which a stable sort (timsort) merges in one pass, and
+    the duplicates are then adjacent. np.union1d would run np.unique over
+    the concatenation."""
+    c = np.concatenate([a, b])
+    c.sort(kind="stable")
+    first = np.ones(c.size, dtype=bool)
+    first[1:] = c[1:] != c[:-1]
+    return c[first]
+
+
+def union(inputs: list[str], output: str | None,
+          capacity_millions: int | None) -> None:
+    """ref: src/index.rs:563-664."""
+    start = time.monotonic()
+    if not inputs:
+        raise ValueError("No input files provided for union operation")
+    headers_and_counts = [store.load_header_and_count(p) for p in inputs]
+    header = headers_and_counts[0][0]
+    total_capacity = (
+        capacity_millions * 1_000_000
+        if capacity_millions is not None
+        else sum(c for _, c in headers_and_counts)
+    )
+    _eprint(
+        f"Performing union of indexes (k={header.kmer_length}, "
+        f"w={header.window_size})"
+    )
+    if capacity_millions is not None:
+        _eprint(f"Pre-allocating user-specified capacity for {total_capacity} "
+                "minimizers")
+    else:
+        _eprint(
+            f"No capacity specified, pre-allocating worst-case capacity for "
+            f"{total_capacity} minimizers from {len(inputs)} indexes"
+        )
+    for i, (file_header, _) in enumerate(headers_and_counts):
+        if (file_header.kmer_length != header.kmer_length
+                or file_header.window_size != header.window_size):
+            raise ValueError(
+                f"Incompatible headers: index {i} has "
+                f"k={file_header.kmer_length}, w={file_header.window_size}, "
+                f"but first index has k={header.kmer_length}, "
+                f"w={header.window_size}"
+            )
+    # the output is ours only if EVERY input carries our trailer
+    out_scheme = store.SCHEME_DXTP_FMIX32_V1
+    for path in inputs:
+        if store.read_provenance(path) != store.SCHEME_DXTP_FMIX32_V1:
+            store.warn_if_foreign_index(path)
+            out_scheme = None
+    merged = np.empty(0, dtype=np.uint64)
+    for i, path in enumerate(inputs):
+        before = merged.size
+        merged = _merge_sorted_unique(merged, store.load_index(path).hashes)
+        _eprint(
+            f"Index {i + 1}: expected {headers_and_counts[i][1]} minimizers, "
+            f"added {merged.size - before} new, total: {merged.size}"
+        )
+    store.write_index(merged, header, output, scheme=out_scheme)
+    _eprint(
+        f"United {len(inputs)} indexes with {merged.size} total minimizers "
+        f"in {time.monotonic() - start:.2f}s"
+    )
+
+
+def _stream_diff_fastx(fastx_path: str, k: int, w: int,
+                       first_header: store.IndexHeader,
+                       first_hashes: np.ndarray, device) -> np.ndarray:
+    """The first index's keys less the minimizers of a FASTX stream
+    (ref: src/index.rs:311-418): each batch's minimizers are extracted on
+    ``device`` and clear the keys they hit there. The progress line after
+    each gigabase reports the keys removed up to that record exactly."""
+    if k != first_header.kmer_length or w != first_header.window_size:
+        raise ValueError(
+            f"FASTX parameters (k={k}, w={w}) must match first index "
+            f"(k={first_header.kmer_length}, w={first_header.window_size})"
+        )
+    src = "stdin" if str(fastx_path) == "-" else "file"
+    _eprint(f"Second index: processing FASTX from {src} (k={k}, w={w})…")
+    reader = FastxReader.from_path(fastx_path)
+    pipe = IndexBuildPipeline(k, w, 0.0, device=device)
+    keys = KeptKeys(first_hashes, pipe.device)
+    seq_count = total_bp = last_reported_gb = 0
+    while True:
+        batch = read_batch(reader, DIFF_STREAM_BATCH)
+        if not batch:
+            break
+        batch_bp = sum(len(r.seq) for r in batch)
+        hashes, seq = pipe.extract_batch([r.seq for r in batch])
+        # running counts only for a batch in which a gigabase ends
+        report = (total_bp + batch_bp) // PROGRESS_BP > last_reported_gb
+        running = keys.remove(hashes, seq if report else None, len(batch))
+        for j, rec in enumerate(batch):
+            seq_count += 1
+            total_bp += len(rec.seq)
+            gb = total_bp // PROGRESS_BP
+            if gb > last_reported_gb:
+                _eprint(
+                    f"  Processed {seq_count} sequences ({total_bp}bp), "
+                    f"removed {int(running[j])} minimizers"
+                )
+                last_reported_gb = gb
+    _eprint(f"Processed {seq_count} sequences ({total_bp}bp) from FASTX file")
+    return keys.remaining()
+
+
+def diff(first: str, second: str, kmer_length: int | None,
+         window_size: int | None, output: str | None,
+         device: str = "cuda") -> None:
+    """Set difference A - B; B is an index or a FASTX stream, whose
+    minimizers are extracted on ``device`` (ref: src/index.rs:421-536)."""
+    start = time.monotonic()
+    device = resolve_device(device)
+    first_idx = store.load_index(first)
+    _eprint(f"First index: loaded {len(first_idx)} minimizers")
+    before = len(first_idx)
+    # the output is a subset of the first index: it keeps its provenance
+    out_scheme = store.read_provenance(first)
+    if out_scheme is None:
+        store.warn_if_foreign_index(first)
+
+    def finish(remaining: np.ndarray) -> None:
+        _eprint(f"Removed {before - remaining.size} minimizers, "
+                f"{remaining.size} remaining")
+        store.write_index(remaining, first_idx.header, output,
+                          scheme=out_scheme)
+        _eprint(f"Completed difference operation in "
+                f"{time.monotonic() - start:.2f}s")
+
+    header = first_idx.header
+    if kmer_length is not None and window_size is not None:
+        finish(_stream_diff_fastx(second, kmer_length, window_size, header,
+                                  first_idx.hashes, device))
+        return
+    try:
+        second_idx = store.load_index(second)
+    except Exception:
+        # not an index: a FASTX stream at the first index's k and w
+        finish(_stream_diff_fastx(second, header.kmer_length,
+                                  header.window_size, header,
+                                  first_idx.hashes, device))
+        return
+    _eprint(f"Second index: loaded {len(second_idx)} minimizers")
+    store.warn_if_foreign_index(second)
+    if (second_idx.header.kmer_length != header.kmer_length
+            or second_idx.header.window_size != header.window_size):
+        raise ValueError(
+            f"Incompatible headers: second index has "
+            f"k={second_idx.header.kmer_length}, "
+            f"w={second_idx.header.window_size}, but first index has "
+            f"k={header.kmer_length}, w={header.window_size}"
+        )
+    finish(np.setdiff1d(first_idx.hashes, second_idx.hashes,
+                        assume_unique=True))

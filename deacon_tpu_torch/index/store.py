@@ -107,6 +107,14 @@ class IndexHeader:
                 f"Unsupported index format version: {self.format_version}"
             )
 
+    def to_dict(self) -> dict:
+        """The server's /index_header body (ref: src/server_common.rs)."""
+        return {
+            "format_version": self.format_version,
+            "kmer_length": self.kmer_length,
+            "window_size": self.window_size,
+        }
+
 
 @dataclass
 class MinimizerIndex:
@@ -190,7 +198,7 @@ def write_index(
         bytes([header.format_version, header.kmer_length, header.window_size])
         + bincode.encode_uint(int(uniq.size))
     )
-    payload = bincode.encode_u64_array(uniq)  # bytes-like; may be GBs
+    payload = bincode.encode_sorted_u64_array(uniq)  # may be GBs
     if output_path is None or str(output_path) == "-":
         sys.stdout.buffer.write(head)
         sys.stdout.buffer.write(payload)

@@ -43,12 +43,17 @@ that holds every row's minimizers (DevicePipeline._rerun_over_budget).
 Index build (IndexBuildPipeline) runs steps 1-2 on IUPAC-canonicalised
 codes, drops k-mers below the entropy threshold (entropy_keep) and hands
 every sequence's hashes to the caller; rows over budget rerun on the
-device as well.
+device as well. ``index diff`` against a FASTX stream takes the same
+extraction and clears the first index's keys it hits (KeptKeys).
+
+DeviceHashProbe holds an index's sorted keys on the device for the
+server: each request's pre-hashed minimizers are one searchsorted probe.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -697,3 +702,131 @@ class DistinctHashes:
     def sorted_u64(self) -> np.ndarray:
         """The set as a sorted uint64 array on the host."""
         return (self.flipped ^ _I64_MIN).cpu().numpy().view(np.uint64)
+
+
+# ---------------------------------------------------------------------------
+# Sorted key sets resident on the device: the server's probe, index diff
+# ---------------------------------------------------------------------------
+
+def upload_flipped(keys: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Sorted u64 keys as a new int64 tensor on ``device`` with the sign bit
+    flipped, so that int64 order is the keys' unsigned order. The host
+    array is copied, never aliased (on the CPU too)."""
+    t = torch.from_numpy(np.ascontiguousarray(keys, dtype=np.uint64)
+                         .view(np.int64)).to(device, copy=True)
+    return t.bitwise_xor_(_I64_MIN)
+
+
+def find_flipped(flipped: torch.Tensor, q: torch.Tensor):
+    """Where flipped queries ``q`` would sit in the non-empty flipped
+    sorted keys, clamped to the last key, and whether the key there is
+    the query: (index, member)."""
+    i = torch.searchsorted(flipped, q).clamp_(max=flipped.numel() - 1)
+    return i, flipped[i] == q
+
+
+class DeviceHashProbe:
+    """u64 membership against an index's keys resident on the device: the
+    server's decisions (clients send pre-hashed minimizers, so each
+    request is one probe; ref: src/server_common.rs:8-27). The keys are
+    held once, sorted and sign-flipped (8 bytes a key); a call uploads
+    the queries (from pinned memory on a card), searches, compares and
+    copies the bits back.
+
+    Thread-safe without a lock: a call shares no mutable state, and the
+    HTTP server's threads enqueue on the device's current stream, whose
+    order the device keeps; each call's ``.cpu()`` waits for its own
+    result."""
+
+    def __init__(self, index_hashes: np.ndarray, device=None):
+        self.device = resolve_device(device)
+        t = time.perf_counter()
+        self.flipped = upload_flipped(index_hashes, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        #: seconds of the upload (and of the file's load: from_index_file)
+        self.upload_s = time.perf_counter() - t
+        self.load_s = 0.0
+
+    @classmethod
+    def from_index_file(cls, path: str, device=None) -> "DeviceHashProbe":
+        """Load an index file's keys, upload them and keep no host copy
+        (the server drops the host array whenever a probe owns the
+        keys)."""
+        from ..index.store import load_index
+
+        resolve_device(device)  # no card: raise before reading the file
+        t = time.perf_counter()
+        hashes = load_index(path).hashes
+        load_s = time.perf_counter() - t
+        self = cls(hashes, device)
+        self.load_s = load_s
+        return self
+
+    def __len__(self) -> int:
+        return int(self.flipped.numel())
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.flipped.numel()) * 8
+
+    def member(self, q: torch.Tensor) -> torch.Tensor:
+        """Membership of flipped int64 queries already on the device (the
+        keys must not be empty)."""
+        return find_flipped(self.flipped, q)[1]
+
+    def __call__(self, hashes: np.ndarray) -> np.ndarray:
+        q = np.ascontiguousarray(hashes, dtype=np.uint64)
+        if q.size == 0 or len(self) == 0:
+            return np.zeros(q.size, dtype=bool)
+        t = torch.from_numpy(q.view(np.int64))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return self.member(t ^ _I64_MIN).cpu().numpy()
+
+
+class KeptKeys:
+    """A sorted u64 key set on the device (int64, sign bit flipped) and a
+    keep-mask over it: ``index diff`` against a FASTX stream clears the
+    keys that each batch's minimizers hit (ref: src/index.rs:311-418)."""
+
+    def __init__(self, keys: np.ndarray, device):
+        self.flipped = upload_flipped(keys, device)
+        self.keep = torch.ones(self.flipped.numel(), dtype=torch.bool,
+                               device=self.flipped.device)
+
+    def removed(self) -> int:
+        return int(self.keep.numel()) - int(self.keep.sum())
+
+    def remove(self, hashes: torch.Tensor, seq: torch.Tensor | None = None,
+               n_seqs: int = 0) -> "np.ndarray | None":
+        """Clear the keys among ``hashes`` (int64 bit patterns of u64).
+        With ``seq`` (each hash's sequence in the batch) returns the
+        (n_seqs,) running count of removed keys after each sequence, a
+        key counting at the first sequence that hits it."""
+        n = int(self.flipped.numel())
+        before = self.removed() if seq is not None else 0
+        if n == 0 or hashes.numel() == 0:
+            return None if seq is None else np.full(n_seqs, before)
+        i, hit = find_flipped(self.flipped, hashes ^ _I64_MIN)
+        if seq is None:
+            self.keep[i[hit]] = False
+            return None
+        i, seq = i[hit], seq[hit]
+        new = self.keep[i]
+        i, seq = i[new], seq[new]
+        o = torch.argsort(seq, stable=True)
+        i, seq = i[o], seq[o]
+        o = torch.argsort(i, stable=True)
+        i, seq = i[o], seq[o]
+        first = torch.ones_like(i, dtype=torch.bool)
+        if i.numel() > 1:
+            first[1:] = i[1:] != i[:-1]
+        self.keep[i] = False
+        new_per = torch.bincount(seq[first], minlength=n_seqs)
+        return before + new_per.cumsum(0).cpu().numpy()
+
+    def remaining(self) -> np.ndarray:
+        """The keys still kept, as a sorted uint64 array on the host."""
+        return (self.flipped[self.keep] ^ _I64_MIN).cpu().numpy().view(
+            np.uint64)

@@ -12,8 +12,9 @@ bincode standard varint encoding for unsigned integers:
     (0xFE + u128 LE for u128); usize is encoded as u64.
 
 For a uniform-random u64 hash stream almost every record is 9 bytes
-(0xFD prefix), so encode/decode is vectorized per length-class with a run
--based scan that only drops to Python for rare class transitions.
+(0xFD prefix): the encoder writes an index's ascending keys as one byte
+matrix per length class, and the decoder scans runs of one class, dropping
+to Python only at the rare class transitions.
 """
 
 from __future__ import annotations
@@ -53,51 +54,34 @@ def decode_uint(buf: memoryview, offset: int) -> tuple[int, int]:
     raise ValueError(f"Unsupported bincode varint marker {first} at offset {offset}")
 
 
-def encode_u64_array(values: np.ndarray) -> "bytes | np.ndarray":
-    """Vectorized bincode-standard encoding of a uint64 array.
-
-    Returns a bytes-like object (bytes or a uint8 array view — both support
-    the buffer protocol for file writes/concatenation)."""
+def encode_sorted_u64_array(values: np.ndarray) -> "bytes | np.ndarray":
+    """Bincode-standard encoding of an ascending uint64 array (an index's
+    keys). Ascending values fall into at most four contiguous runs of one
+    record length each (1, 3, 5, 9 bytes), so each run is written as one
+    (n, length) byte matrix: its marker column, then the low bytes of
+    each value. Returns a bytes-like object (a uint8 array)."""
     v = np.ascontiguousarray(values, dtype=np.uint64)
     n = v.size
     if n == 0:
         return b""
-    lens = np.full(n, 9, dtype=np.int64)
-    small = v <= np.uint64(_BYTE_MAX)
-    u16 = (~small) & (v <= np.uint64(0xFFFF))
-    u32 = (~small) & (~u16) & (v <= np.uint64(0xFFFFFFFF))
-    lens[small] = 1
-    lens[u16] = 3
-    lens[u32] = 5
-    offsets = np.zeros(n, dtype=np.int64)
-    np.cumsum(lens[:-1], out=offsets[1:])
-    total = int(offsets[-1] + lens[-1])
-    out = np.zeros(total, dtype=np.uint8)
-
-    le_bytes = v.view(np.uint8).reshape(n, 8)  # little-endian on all our hosts
-
-    idx = offsets[small]
-    out[idx] = le_bytes[small, 0]
-
-    idx = offsets[u16]
-    if idx.size:
-        out[idx] = _U16_MARK
-        for j in range(2):
-            out[idx + 1 + j] = le_bytes[u16, j]
-
-    idx = offsets[u32]
-    if idx.size:
-        out[idx] = _U32_MARK
-        for j in range(4):
-            out[idx + 1 + j] = le_bytes[u32, j]
-
-    big = lens == 9
-    idx = offsets[big]
-    if idx.size:
-        out[idx] = _U64_MARK
-        for j in range(8):
-            out[idx + 1 + j] = le_bytes[big, j]
-
+    cuts = [0, *np.searchsorted(
+        v, np.array([_BYTE_MAX + 1, 0x10000, 1 << 32], dtype=np.uint64)
+    ).tolist(), n]
+    runs = list(zip(cuts[:-1], cuts[1:], (1, 3, 5, 9),
+                    (None, _U16_MARK, _U32_MARK, _U64_MARK)))
+    out = np.empty(sum((b - a) * ln for a, b, ln, _ in runs), dtype=np.uint8)
+    off = 0
+    for a, b, ln, mark in runs:
+        if b == a:
+            continue
+        rec = out[off:off + (b - a) * ln].reshape(b - a, ln)
+        le = v[a:b].view(np.uint8).reshape(b - a, 8)  # little-endian hosts
+        if mark is None:
+            rec[:, 0] = le[:, 0]
+        else:
+            rec[:, 0] = mark
+            rec[:, 1:] = le[:, :ln - 1]
+        off += (b - a) * ln
     return out
 
 
