@@ -4,7 +4,12 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each
 ending in torch.cuda.synchronize() and one flushed line with its seconds:
 
-0. device: the card's name and power limit (nvidia-smi);
+0. device: the card's name and power limit (nvidia-smi); then the host
+   library (deacon_tpu_torch/io/native/host.cpp: reader, writers, tile
+   packer, index codec, sorted-set merges, host extraction) built by g++,
+   with its seconds, the g++ version, which codec headers
+   (/usr/include/{zlib,zstd,lzma,bzlib}.h) and which codec libraries
+   (ldconfig -p) the machine has;
 1. build: nvcc compiles csrc/*.cu into deacon_tpu_torch/_build/;
 2. kernel parity at main-path shapes: K1 (select_compact) at the three
    default tiles and K2 (probe_hits) on a production-sized sorted stream
@@ -105,10 +110,21 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    absent (K3) and under DEACON_PALLAS=1 at k=41 and 31 (K5), each
    against setdiff1d and with only its kernel launched; ``index union``
    and index-minus-index ``diff`` of two ~1e7-key indexes against
-   np.union1d and np.setdiff1d. The file is deleted after it.
+   np.union1d and np.setdiff1d;
+17. host I/O on the card's host, every host-library function against its
+   plain version on seeded inputs (a mismatch fails the phase): the
+   reader on ~41 MB of phase 4's reads (some with IUPAC and lowercase
+   bases) as FASTQ, single and paired, in each input format (plain, gzip,
+   BGZF, zstd, xz, bzip2), against the Python parser, with MB/s of each;
+   the tile packer at the three default tiles and 4a's, with the filter's
+   and the index build's codes, against pack_rows_packed_plain, with ms
+   per tile of both; the phase-15 file decoded by the host library and
+   by utils/bincode (NumPy), keys equal, seconds of each; a writer round
+   trip in each output codec, with MB/s; host extraction against the
+   NumPy oracle on ~1 Mbp at k=31 and k=56. The file is deleted after it.
 
 Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 14, 4, 4a, 4b, 4c, 13,
-4d, 15, 16, 5, 6, 7, 7b, 8. Each switch is set in os.environ only around
+4d, 15, 16, 17, 5, 6, 7, 7b, 8. Each switch is set in os.environ only around
 its phase.
 
 ``python3 chip_smoke.py --k1`` runs phases 0 and 1 and then K1's part of
@@ -157,17 +173,29 @@ import deacon_tpu_torch as dtt
 from deacon_tpu_torch.cli import main as cli_main
 from deacon_tpu_torch.filter.engine import DeviceDecider, ShardedDecider
 from deacon_tpu_torch.index.store import load_header_and_count
+from deacon_tpu_torch.io import native_loader as host
 from deacon_tpu_torch.io import zstd
-from deacon_tpu_torch.io.fastx import open_maybe_compressed
+from deacon_tpu_torch.io.fastx import FastxReader, open_maybe_compressed
+from deacon_tpu_torch.io.writers import get_writer
 from deacon_tpu_torch.ops import _build
 from deacon_tpu_torch.ops import kernels as K
 from deacon_tpu_torch.ops.engine import DevicePipeline, select_slots
 from deacon_tpu_torch.ops.hash import lsr, xxh3_64
 from deacon_tpu_torch.ops.minimizers_np import get_minimizer_hashes_and_positions
+from deacon_tpu_torch.ops.host_extract import (
+    extract_filter_batch,
+    extract_filter_batch_plain,
+)
 from deacon_tpu_torch.ops.pack import (
+    INDEX_CODE,
+    PACK_CODE,
+    RowBlock,
     _Row,
     default_budget_frac,
+    join_seqs,
+    pack_block,
     pack_rows_packed,
+    pack_rows_packed_plain,
     v4_row_budget,
 )
 from deacon_tpu_torch.ops.radix_probe import (
@@ -177,6 +205,7 @@ from deacon_tpu_torch.ops.radix_probe import (
     sorted_unique_keys,
 )
 from deacon_tpu_torch.parallel.sharded import make_mesh
+from deacon_tpu_torch.utils import bincode
 from deacon_tpu_torch.utils.xxh3 import xxh3_64_u64, xxh3_64_u128
 
 SEED = 20261017
@@ -1306,17 +1335,24 @@ class _Cfg:  # the threshold fields DeviceDecider's decisions read
 
 
 def run_decider(decider, single, pairs, ont, batch: int = 10_000):
-    """Launch every batch as the filter engine does, resolve in order."""
+    """Launch every batch as the filter engine does (each batch's reads in
+    one byte arena, pairs adjacent), resolve in order; returns every
+    unit's (keep, hits, total)."""
     futs = []
     for i in range(0, len(single), batch):
-        futs.append(("s", decider.launch_unpaired(single[i:i + batch], 0,
-                                                  _Cfg)))
+        futs.append(decider.launch(*join_seqs(single[i:i + batch]), False,
+                                   0, _Cfg))
     for i in range(0, len(ont), 500):
-        futs.append(("s", decider.launch_unpaired(ont[i:i + 500], 0, _Cfg)))
+        futs.append(decider.launch(*join_seqs(ont[i:i + 500]), False, 0,
+                                   _Cfg))
     for i in range(0, len(pairs), batch):
-        futs.append(("p", decider.launch_paired(pairs[i:i + batch], 0, _Cfg)))
-    out = [f() for _, f in futs]
-    return [d for batch_out in out for d in batch_out]
+        futs.append(decider.launch(
+            *join_seqs([s for pr in pairs[i:i + batch] for s in pr]), True,
+            0, _Cfg))
+    out = [f() for f in futs]
+    return list(zip(np.concatenate([d.keep for d in out]).tolist(),
+                    np.concatenate([d.hits for d in out]).tolist(),
+                    np.concatenate([d.totals for d in out]).tolist()))
 
 
 def where_time_goes(decider, single, pairs, ont, run_s: float) -> dict:
@@ -1437,7 +1473,7 @@ def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False,
     main-path stream) and window 4d (the reads through ShardedDecider on
     a 2x4 mesh of the card), and with ``served`` phases 15 and 16 (the
     keys written to an index file: the server and client, index diff and
-    union), before the table is freed."""
+    union, and phase 17's codec part), before the table is freed."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1514,7 +1550,8 @@ def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False,
         extra["4d"] = sharded_window(keys_u, k, (single, pairs, ont),
                                      (hits_ref, tot_ref), n_bp)
     if served:
-        extra.update(file_phases(keys_u, genome, g_hashes, single, pairs))
+        extra.update(file_phases(keys_u, genome, g_hashes, single, pairs,
+                                 ont))
     return {"numbers": numbers, "k2": k2, "launches": launches,
             "windows": extra, "k2_sharded": k2_sharded}
 
@@ -1854,10 +1891,11 @@ def http_get(url: str) -> bytes:
         return r.read()
 
 
-def file_phases(keys_u, genome: bytes, g_hashes, single, pairs) -> dict:
-    """Phases 15 and 16 on phase 4's keys, written once to an index file
-    in a tempdir (the free space printed first; too little fails the
-    phase) and deleted after phase 16."""
+def file_phases(keys_u, genome: bytes, g_hashes, single, pairs,
+                ont) -> dict:
+    """Phases 15, 16 and 17 on phase 4's keys and reads, the keys written
+    once to an index file in a tempdir (the free space printed first; too
+    little fails the phase) and deleted after phase 17."""
     tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_file_")
     try:
         n = int(keys_u.numel())
@@ -1876,6 +1914,8 @@ def file_phases(keys_u, genome: bytes, g_hashes, single, pairs) -> dict:
         out = {"15": phase15_server(idx, keys_u, keys_host, write_s, single,
                                     pairs, tmp)}
         out["16"] = phase16_index_ops(idx, keys_host, genome, g_hashes, tmp)
+        out["17"] = phase17_host_io(idx, keys_host, single + ont, pairs,
+                                    tmp)
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2195,6 +2235,222 @@ SCALE_RECORDS, SCALE_RECORD_BP = 26, 4_000_000  # 104 Mbp
 ORACLE_WORKERS, ORACLE_SECONDS = 6, 120
 
 
+# ---------------------------------------------------------------------------
+# phase 0's toolchain probe and phase 17: host I/O parity and rates
+# ---------------------------------------------------------------------------
+
+BGZF_EOF = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000000000")
+CODEC_LIBS = ("libz.", "libzstd", "liblzma", "libbz2")
+
+
+def host_toolchain() -> dict:
+    """g++'s version, the codec headers present, and the codec libraries
+    ldconfig knows (an unversioned .so name is a link-time name)."""
+    gpp = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    ld = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                        timeout=60).stdout.splitlines()
+    libs = sorted({ln.split()[0] for ln in ld
+                   if ln.strip().startswith(CODEC_LIBS)})
+    return {"gpp": gpp[0] if gpp else "",
+            "headers": {h: os.path.exists(f"/usr/include/{h}.h")
+                        for h in ("zlib", "zstd", "lzma", "bzlib")},
+            "libs": libs}
+
+
+def bgzf(data: bytes, block: int = 65280) -> bytes:
+    """BGZF (blocked gzip): deflate members of at most ``block`` input
+    bytes, each with the BC extra field holding its size, then the EOF
+    block."""
+    import struct
+    import zlib
+
+    out = []
+    for i in range(0, len(data), block):
+        chunk = data[i:i + block]
+        c = zlib.compressobj(1, zlib.DEFLATED, -15)
+        body = c.compress(chunk) + c.flush()
+        out.append(b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x06\x00BC\x02"
+                   b"\x00" + struct.pack("<H", 18 + len(body) + 8 - 1)
+                   + body + struct.pack("<II", zlib.crc32(chunk), len(chunk)))
+    return b"".join(out) + BGZF_EOF
+
+
+def _compressors() -> dict:
+    import bz2
+    import gzip
+    import lzma
+
+    def zst(data: bytes) -> bytes:
+        buf = io.BytesIO()
+        w = zstd.Writer(buf, 3, "<memory>")
+        w.write(data)
+        w.close()
+        return buf.getvalue()
+
+    return {"plain": lambda d: d,
+            "gz": lambda d: gzip.compress(d, compresslevel=1, mtime=0),
+            "bgzf": bgzf, "zst": zst,
+            "xz": lambda d: lzma.compress(d, preset=0),
+            "bz2": lambda d: bz2.compress(d, compresslevel=1)}
+
+
+def _fastq_bytes(recs) -> bytes:
+    return b"".join(b"@%s\n%s\n+\n%s\n" % (n, s, b"I" * len(s))
+                    for n, s in recs)
+
+
+def _dirty(rng, reads: list[bytes]) -> list[bytes]:
+    """One read in ten with six bases made IUPAC or lowercase."""
+    out = []
+    for i, r in enumerate(reads):
+        if i % 10 == 3 and r:
+            b = bytearray(r)
+            for j in rng.integers(0, len(b), 6):
+                b[int(j)] = b"acgtNRYKMn"[int(rng.integers(0, 10))]
+            r = bytes(b)
+        out.append(r)
+    return out
+
+
+def _native_records(path: str, batch: int = 10_000):
+    """Every record through the host library's reader in filter-sized
+    batches: (records, seconds of the reading alone)."""
+    t = time.perf_counter()
+    reader = FastxReader.from_path(path)
+    batches = []
+    while len(b := reader.read_batch(batch)):
+        batches.append(b)
+    secs = time.perf_counter() - t
+    return [r for b in batches for r in b.records()], secs
+
+
+def phase17_host_io(idx: str, keys_host, single, pairs, tmp: str) -> dict:
+    """Phase 17: each host-library function against its plain version on
+    seeded inputs, with rates on the card's host."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    out: dict = {}
+    # reader: phase 4's reads as FASTQ, single and paired, every format
+    s_reads = _dirty(rng, single)
+    p_reads = _dirty(rng, [s for pr in pairs for s in pr])
+    texts = {
+        "s.fq": _fastq_bytes((b"s%d x" % i, r) for i, r in enumerate(s_reads)),
+        "r1.fq": _fastq_bytes((b"p%d/1" % i, r)
+                              for i, r in enumerate(p_reads[0::2])),
+        "r2.fq": _fastq_bytes((b"p%d/2" % i, r)
+                              for i, r in enumerate(p_reads[1::2])),
+    }
+    total_mb = sum(map(len, texts.values())) / 1e6
+    reader = {}
+    for fmt, comp in _compressors().items():
+        native_s = plain_s = 0.0
+        n_recs = 0
+        for name, text in texts.items():
+            path = os.path.join(tmp, f"{name}.{fmt}")
+            with open(path, "wb") as f:
+                f.write(comp(text))
+            got, secs = _native_records(path)
+            native_s += secs
+            t = time.perf_counter()
+            with open_maybe_compressed(path) as stream:
+                want = list(FastxReader(stream))
+            plain_s += time.perf_counter() - t
+            if got != want:
+                raise AssertionError(f"phase 17: reader on {name}.{fmt} "
+                                     "differs from the Python parser")
+            n_recs += len(got)
+            os.unlink(path)
+        reader[fmt] = {"records": n_recs,
+                       "mb_per_s": round(total_mb / native_s, 3),
+                       "plain_mb_per_s": round(total_mb / plain_s, 3)}
+    out["reader"] = {"mb": round(total_mb, 3), "formats": reader}
+    # tile packer: default tiles and 4a's, filter and index codes
+    packer = []
+    for L, R in (*DevicePipeline.DEFAULT_TILES, *K4_TILES):
+        rows = tile_rows(rng, L, R)
+        block = RowBlock.from_rows(rows)
+        l = K_ + W_ - 1
+        for code_name, code in (("filter", PACK_CODE), ("index", INDEX_CODE)):
+            got = pack_block(block, R, L, K_, l, code)
+            want = pack_rows_packed_plain(rows, R, L, K_, l, code)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"phase 17: packer ({L}, {R}) {code_name}"
+                                     " differs from pack_rows_packed_plain")
+            native_ms = min(_wall_ms(lambda: pack_block(block, R, L, K_, l,
+                                                        code))
+                            for _ in range(5))
+            plain_ms = min(_wall_ms(lambda: pack_rows_packed_plain(
+                rows, R, L, K_, l, code)) for _ in range(2))
+            packer.append({"tile": [L, R], "code": code_name,
+                           "ms": round(native_ms, 3),
+                           "plain_ms": round(plain_ms, 3)})
+    out["packer"] = packer
+    # codec: the phase-15 file, host library against NumPy
+    buf = np.memmap(idx, dtype=np.uint8, mode="r")
+    count, pos = bincode.decode_uint(memoryview(buf[:32].tobytes()), 3)
+    t = time.perf_counter()
+    got, end = host.decode_u64_varint(buf, pos, count)
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want, end_p = bincode.decode_u64_array(buf, pos, count)
+    plain_s = time.perf_counter() - t
+    if end != end_p or not (np.array_equal(got, want)
+                            and np.array_equal(got, keys_host)):
+        raise AssertionError("phase 17: decoded keys differ")
+    del got, want, buf
+    out["codec"] = {"keys": int(count), "decode_s": round(native_s, 3),
+                    "plain_decode_s": round(plain_s, 3)}
+    # writer: a round trip in each output codec
+    data = texts["s.fq"][:8_000_000]
+    writer = {}
+    for ext in ("", ".gz", ".zst", ".xz"):
+        path = os.path.join(tmp, f"w.fq{ext}")
+        t = time.perf_counter()
+        w = get_writer(path, 2)
+        for i in range(0, len(data), 1 << 20):
+            w.write(data[i:i + (1 << 20)])
+        w.finish()
+        secs = time.perf_counter() - t
+        with open_maybe_compressed(path) as f:
+            if f.read() != data:
+                raise AssertionError(f"phase 17: writer round trip {ext!r}")
+        writer[ext or "plain"] = {"mb_per_s": round(len(data) / 1e6 / secs,
+                                                    3),
+                                  "bytes": os.path.getsize(path)}
+        os.unlink(path)
+    out["writer"] = writer
+    # host extraction (the client's) against the NumPy oracle, ~1 Mbp
+    seqs = s_reads[:6700]
+    extraction = {}
+    for k, w in ((K_, W_), (56, 9)):
+        t = time.perf_counter()
+        got = extract_filter_batch(seqs, 0, k, w)
+        native_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = extract_filter_batch_plain(seqs, 0, k, w)
+        plain_s = time.perf_counter() - t
+        for g, p in zip(got, want):
+            if not (np.array_equal(g[0], p[0]) and np.array_equal(g[1], p[1])
+                    and g[2] == p[2]):
+                raise AssertionError(f"phase 17: extraction at k={k} differs"
+                                     " from the oracle")
+        mbp = sum(map(len, seqs)) / 1e6
+        extraction[f"k{k}"] = {"mbp": mbp,
+                               "mbp_per_s": round(mbp / native_s, 3),
+                               "plain_mbp_per_s": round(mbp / plain_s, 3)}
+    out["extraction"] = extraction
+    log("17 host I/O parity and rates", t0,
+        **{n: json.dumps(v) for n, v in out.items()})
+    return out
+
+
+def _wall_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
+
+
 def _oracle_hashes(args) -> np.ndarray:
     seq, k, w = args
     return dtt.compute_minimizer_hashes(seq, k, w)
@@ -2295,6 +2551,11 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log("0 device", t0, nvidia_smi=json.dumps(smi), torch_name=json.dumps(name),
         torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    gpp_s = host.build()
+    host.library()
+    log("0 host library", t0, gpp_s=gpp_s if gpp_s is not None else "cached",
+        **{n: json.dumps(v) for n, v in host_toolchain().items()})
     t0 = time.perf_counter()
     secs = _build.build()
     _build.library()

@@ -3,11 +3,14 @@
 Orchestration mirrors the reference engines' semantics (banner, index load,
 three input modes, per-batch decide + ordered write, stats, summary; ref:
 src/local_filter.rs:575-824, src/remote_filter.rs:431-693): records are
-read in batches, minimizers are extracted, probed and counted for the
-whole batch on the device, and the records are written in order. Up to
+read in batches by the host library's reader (io/fastx.RecordBatch: one
+byte arena, no object per read), minimizers are extracted, probed and
+counted for the whole batch on the device, and the kept records are
+gathered into the output in order by the host library. Up to
 ``resolve_depth`` batches stay in flight while the host reads ahead and
-writes behind. In client mode (``server_address``) the host extracts each
-batch's minimizers and a server decides (RemoteDecider).
+writes behind; each holds its own copy of its reads. In client mode
+(``server_address``) the host extracts each batch's minimizers and a
+server decides (RemoteDecider).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import sys
 import time
 from collections import deque
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -22,8 +26,8 @@ import torch
 from ..config import FilterConfig
 from ..constants import TOOL_NAME, VERSION
 from ..index.store import load_index, warn_if_foreign_index
-from ..io.fastx import FastxReader, Record, read_batch
-from ..io.writers import FastxWriter, format_record, get_writer
+from ..io.fastx import FastxReader, RecordBatch
+from ..io.writers import FastxWriter, format_batch, get_writer
 from ..ops import host_extract
 from ..ops.engine import DevicePipeline
 from ..parallel.sharded import ShardedPipeline, make_mesh, parse_mesh_spec
@@ -54,9 +58,36 @@ def _rust_bool(b: bool) -> str:
     return "true" if b else "false"
 
 
+@dataclass
+class Decisions:
+    """A batch's decisions, one entry per read unit (a read, or a pair);
+    ``kmers`` (the k-mers hit, per unit) only in --debug."""
+
+    keep: np.ndarray  # bool
+    hits: np.ndarray  # int64
+    totals: np.ndarray  # int64
+    kmers: list | None = None
+
+    @classmethod
+    def from_list(cls, decisions) -> "Decisions":
+        """From a backend's (keep, hits, total, kmers) tuples."""
+        n = len(decisions)
+        return cls(np.fromiter((d[0] for d in decisions), bool, n),
+                   np.fromiter((d[1] for d in decisions), np.int64, n),
+                   np.fromiter((d[2] for d in decisions), np.int64, n),
+                   [d[3] for d in decisions])
+
+
+def _units(n_seqs: int, paired: bool):
+    """Unit and mate of each sequence of a batch: pairs are adjacent."""
+    i = np.arange(n_seqs, dtype=np.int64)
+    return (i // 2, i % 2) if paired else (i, np.zeros_like(i))
+
+
 class HostDecider:
-    """Host extraction (NumPy oracle) + sorted-array probe; the --debug
-    engine (it lists each record's k-mers)."""
+    """Host extraction (the host library's, ops/host_extract) + the
+    backend's probe; the --debug engine (it lists each record's
+    k-mers)."""
 
     resolve_depth = 1
 
@@ -64,36 +95,29 @@ class HostDecider:
         self.backend = backend
         self.k, self.w = k, w
 
-    def decide_unpaired(self, seqs, prefix_length, cfg: FilterConfig):
-        ext = host_extract.extract_filter_batch(seqs, prefix_length, self.k, self.w)
-        return self.backend.decide_unpaired(
-            ext, self.k, cfg.abs_threshold, cfg.rel_threshold, cfg.deplete, cfg.debug
-        )
+    def decide(self, arena, start, length, paired: bool, prefix_length,
+               cfg: FilterConfig) -> Decisions:
+        per = host_extract.extract_filter_arena(arena, start, length,
+                                                prefix_length, self.k, self.w)
+        if not paired:
+            return Decisions.from_list(self.backend.decide_unpaired(
+                per, self.k, cfg.abs_threshold, cfg.rel_threshold,
+                cfg.deplete, cfg.debug))
+        ext = [
+            (np.concatenate([h1, h2]), np.concatenate([p1, p2]), (e1, e2))
+            for (h1, p1, e1), (h2, p2, e2) in zip(per[0::2], per[1::2])
+        ]
+        return Decisions.from_list(self.backend.decide_paired(
+            ext, self.k, cfg.abs_threshold, cfg.rel_threshold, cfg.deplete,
+            cfg.debug))
 
-    def decide_paired(self, pairs, prefix_length, cfg: FilterConfig):
-        flat: list[bytes] = []
-        for s1, s2 in pairs:
-            flat.append(s1)
-            flat.append(s2)
-        per = host_extract.extract_filter_batch(flat, prefix_length, self.k, self.w)
-        ext = []
-        for i in range(0, len(per), 2):
-            (h1, p1, e1), (h2, p2, e2) = per[i], per[i + 1]
-            ext.append((
-                np.concatenate([h1, h2]),
-                np.concatenate([p1, p2]),
-                (e1, e2),
-            ))
-        return self.backend.decide_paired(
-            ext, self.k, cfg.abs_threshold, cfg.rel_threshold, cfg.deplete, cfg.debug
-        )
-
-    def launch_unpaired(self, seqs, prefix_length, cfg):
-        result = self.decide_unpaired(seqs, prefix_length, cfg)
-        return lambda: result
-
-    def launch_paired(self, pairs, prefix_length, cfg):
-        result = self.decide_paired(pairs, prefix_length, cfg)
+    def launch(self, arena, start, length, paired: bool, prefix_length,
+               cfg: FilterConfig):
+        """Decide sequences ``arena[start[i]:start[i] + length[i]]``
+        (pairs adjacent when ``paired``); returns a resolve() ->
+        Decisions closure."""
+        result = self.decide(arena, start, length, paired, prefix_length,
+                             cfg)
         return lambda: result
 
 
@@ -102,7 +126,8 @@ class RemoteDecider(HostDecider):
     server on a small thread pool (DEACON_CLIENT_INFLIGHT workers, default
     3), overlapping them with the write-back of earlier batches; the
     engine loop resolves batches in order (ref: src/remote_filter.rs:
-    731-792 is sequential here)."""
+    731-792 is sequential here). The pool's threads share no reader or
+    writer handle: each extraction is a stateless host-library call."""
 
     def __init__(self, backend, k: int, w: int):
         import concurrent.futures
@@ -114,24 +139,18 @@ class RemoteDecider(HostDecider):
             max_workers=workers)
         self.resolve_depth = workers
 
-    def launch_unpaired(self, seqs, prefix_length, cfg):
-        return self._pool.submit(self.decide_unpaired, seqs, prefix_length,
-                                 cfg).result
-
-    def launch_paired(self, pairs, prefix_length, cfg):
-        return self._pool.submit(self.decide_paired, pairs, prefix_length,
-                                 cfg).result
+    def launch(self, arena, start, length, paired: bool, prefix_length,
+               cfg: FilterConfig):
+        return self._pool.submit(self.decide, arena, start, length, paired,
+                                 prefix_length, cfg).result
 
 
-def _decisions_from_counts(hits, totals, cfg: FilterConfig):
-    """Vectorized (keep, hits, total, kmers=[]) decisions from counts."""
+def _decisions_from_counts(hits, totals, cfg: FilterConfig) -> Decisions:
+    """Vectorized decisions from counts."""
     keep = keep_mask_batch(
         hits, totals, cfg.abs_threshold, cfg.rel_threshold, cfg.deplete
     )
-    return [
-        (bool(kp), int(h), int(t), [])
-        for kp, h, t in zip(keep, hits, totals)
-    ]
+    return Decisions(np.asarray(keep, dtype=bool), hits, totals)
 
 
 class DeviceDecider:
@@ -144,12 +163,12 @@ class DeviceDecider:
         self.pipe = DevicePipeline(index_hashes, k, w, device=device)
         self.resolve_depth = DevicePipeline.RESOLVE_DEPTH
 
-    def launch_unpaired(self, seqs, prefix_length, cfg: FilterConfig):
-        resolve = self.pipe.launch_single(seqs, prefix_length)
-        return lambda: _decisions_from_counts(*resolve(), cfg)
-
-    def launch_paired(self, pairs, prefix_length, cfg: FilterConfig):
-        resolve = self.pipe.launch_paired(pairs, prefix_length)
+    def launch(self, arena, start, length, paired: bool, prefix_length,
+               cfg: FilterConfig):
+        unit, mate = _units(length.size, paired)
+        resolve = self.pipe.launch_counts(
+            arena, start, length, unit, mate,
+            length.size // 2 if paired else length.size, prefix_length)
         return lambda: _decisions_from_counts(*resolve(), cfg)
 
 
@@ -204,8 +223,8 @@ def _engine_desc(decider) -> str:
     if isinstance(decider, DeviceDecider):
         return f"device pipeline ({decider.pipe.device})"
     if isinstance(decider, RemoteDecider):
-        return "remote server decisions (NumPy oracle extraction)"
-    return "host batch engine (NumPy oracle extraction)"
+        return "remote server decisions (host library extraction)"
+    return "host batch engine (host library extraction)"
 
 
 def run(config: FilterConfig):
@@ -266,76 +285,38 @@ def run(config: FilterConfig):
         writer2 = get_writer(config.output2_path, config.compression_level)
 
     spinner = Spinner(not quiet)
-    buffer = bytearray()
-    buffer2 = bytearray()
+    paired = input_type != "single"
 
-    def flush_buffers():
-        if buffer:
-            writer.write(bytes(buffer))
-            buffer.clear()
-        if writer2 is not None and buffer2:
-            writer2.write(bytes(buffer2))
-            buffer2.clear()
-
-    def emit_single(rec: Record):
-        stats.output_seq_counter += 1
-        format_record(
-            rec.id, rec.seq, rec.qual, rec.is_fastq, config.rename,
-            stats.output_seq_counter, buffer,
-        )
-
-    def emit_pair(rec1: Record, rec2: Record):
-        stats.output_seq_counter += 2
-        format_record(
-            rec1.id, rec1.seq, rec1.qual, rec1.is_fastq, config.rename,
-            stats.output_seq_counter - 1, buffer,
-        )
-        format_record(
-            rec2.id, rec2.seq, rec2.qual, rec2.is_fastq, config.rename,
-            stats.output_seq_counter,
-            buffer2 if writer2 is not None else buffer,
-        )
-
-    def process_single(records, decisions):
-        for rec, (keep, hits, total, kmers) in zip(records, decisions):
-            stats.total_seqs += 1
-            stats.total_bp += len(rec.seq)
-            if config.debug:
-                _eprint(
-                    f"DEBUG: {rec.id.decode('utf-8', 'replace')} "
-                    f"hits={hits}/{total} keep={_rust_bool(keep)} "
-                    f"kmers=[{','.join(kmers)}]"
-                )
-            if keep:
-                stats.output_bp += len(rec.seq)
-                emit_single(rec)
-            else:
-                stats.filtered_seqs += 1
-                stats.filtered_bp += len(rec.seq)
-        flush_buffers()
-        spinner.update(stats, filtering_start)
-
-    def process_pairs(pairs, decisions):
-        for (rec1, rec2), (keep, hits, total, kmers) in zip(pairs, decisions):
-            pair_bp = len(rec1.seq) + len(rec2.seq)
-            stats.total_seqs += 2
-            stats.total_bp += pair_bp
-            # hits>0 guard matches the reference's paired debug path
-            # (ref: src/local_filter.rs:424, :497) — single-end prints all
-            if config.debug and hits > 0:
-                _eprint(
-                    f"DEBUG: {rec1.id.decode('utf-8', 'replace')}/"
-                    f"{rec2.id.decode('utf-8', 'replace')} "
-                    f"hits={hits}/{total} keep={_rust_bool(keep)} "
-                    f"kmers=[{','.join(kmers)}]"
-                )
-            if keep:
-                stats.output_bp += pair_bp
-                emit_pair(rec1, rec2)
-            else:
-                stats.filtered_seqs += 2
-                stats.filtered_bp += pair_bp
-        flush_buffers()
+    def process(batch: RecordBatch, d: Decisions):
+        """Stats, debug lines and output of one resolved batch (pairs
+        adjacent in ``batch`` when paired)."""
+        lens = batch.seq_lens
+        unit_bp = lens[0::2] + lens[1::2] if paired else lens
+        per = 2 if paired else 1
+        n_units = d.keep.size
+        stats.total_seqs += len(batch)
+        stats.total_bp += int(lens.sum())
+        if config.debug:
+            _debug_lines(batch, d, paired)
+        kept = np.nonzero(d.keep)[0]
+        stats.output_bp += int(unit_bp[kept].sum())
+        stats.filtered_seqs += (n_units - kept.size) * per
+        stats.filtered_bp += int(unit_bp.sum()) - int(unit_bp[kept].sum())
+        first = stats.output_seq_counter + 1
+        stats.output_seq_counter += kept.size * per
+        numbers = np.arange(first, first + kept.size * per, dtype=np.int64)
+        if not paired:
+            writer.write(format_batch(batch, kept,
+                                      numbers if config.rename else None))
+        elif writer2 is not None:
+            for w, mate in ((writer, 0), (writer2, 1)):
+                w.write(format_batch(batch, 2 * kept + mate,
+                                     numbers[mate::2] if config.rename
+                                     else None))
+        else:
+            idx = np.stack([2 * kept, 2 * kept + 1], axis=1).reshape(-1)
+            writer.write(format_batch(batch, idx,
+                                      numbers if config.rename else None))
         spinner.update(stats, filtering_start)
 
     # up to `depth` launched batches stay in flight (their outputs then
@@ -345,58 +326,25 @@ def run(config: FilterConfig):
         depth = max(1, int(decider.resolve_depth))
         pending: deque = deque()
         pending_bytes = 0
-
-        def drain(process_fn, everything=False):
-            nonlocal pending_bytes
+        batches = _read_batches(config, input_type)
+        while True:
+            batch = next(batches, None)
+            if batch is not None:
+                fut = decider.launch(batch.arena, batch.seq_starts,
+                                     batch.seq_lens, paired,
+                                     config.prefix_length, config)
+                nb = int(batch.seq_lens.sum())
+                pending.append((batch, fut, nb))
+                pending_bytes += nb
             while pending and (
-                everything or len(pending) > depth
+                batch is None or len(pending) > depth
                 or pending_bytes > MAX_PENDING_BYTES
             ):
-                recs, fut, nb = pending.popleft()
+                done, fut, nb = pending.popleft()
                 pending_bytes -= nb
-                process_fn(recs, fut())
-
-        if input_type == "single":
-            reader = FastxReader.from_path(config.input_path)
-            while True:
-                records = read_batch(reader, config.batch_size)
-                if not records:
-                    drain(process_single, everything=True)
-                    break
-                fut = decider.launch_unpaired(
-                    [r.seq for r in records], config.prefix_length, config
-                )
-                nb = sum(len(r.seq) for r in records)
-                pending.append((records, fut, nb))
-                pending_bytes += nb
-                drain(process_single)
-        else:
-            if input_type == "interleaved":
-                reader = FastxReader.from_path("-")
-                pair_iter = _interleaved_pairs(reader)
-            else:
-                r1 = FastxReader.from_path(config.input_path)
-                r2 = FastxReader.from_path(config.input2_path)
-                pair_iter = zip(r1, r2)
-            while True:
-                pairs: list[tuple[Record, Record]] = []
-                for _ in range(config.batch_size):
-                    try:
-                        pairs.append(next(pair_iter))
-                    except StopIteration:
-                        break
-                if not pairs:
-                    drain(process_pairs, everything=True)
-                    break
-                fut = decider.launch_paired(
-                    [(a.seq, b.seq) for a, b in pairs],
-                    config.prefix_length,
-                    config,
-                )
-                nb = sum(len(a.seq) + len(b.seq) for a, b in pairs)
-                pending.append((pairs, fut, nb))
-                pending_bytes += nb
-                drain(process_pairs)
+                process(done, fut())
+            if batch is None:
+                break
     finally:
         spinner.finish()
 
@@ -455,21 +403,50 @@ def _finish_run(
             _eprint(f'Summary saved to "{config.summary_path}"')
 
 
-def _interleaved_pairs(reader: FastxReader):
-    """Yield record pairs from an interleaved stream; odd count is an error
+def _read_batches(config: FilterConfig, input_type: str):
+    """The input as RecordBatches of ``config.batch_size`` read units, a
+    pair's two records adjacent. Paired files stop at the shorter one; an
+    interleaved stream with an odd record count is an error
     (ref: src/remote_filter.rs:1188-1194)."""
-    count = 0
-    while True:
-        try:
-            rec1 = next(reader)
-        except StopIteration:
-            return
-        count += 1
-        try:
-            rec2 = next(reader)
-        except StopIteration:
-            raise ValueError(
-                f"Uneven number of interleaved sequence pairs. Found {count} records."
-            ) from None
-        count += 1
-        yield rec1, rec2
+    size = config.batch_size
+    if input_type == "single":
+        reader = FastxReader.from_path(config.input_path)
+        while len(batch := reader.read_batch(size)):
+            yield batch
+    elif input_type == "interleaved":
+        reader = FastxReader.from_path("-")
+        count = 0
+        while len(batch := reader.read_batch(2 * size)):
+            count += len(batch)
+            if len(batch) % 2:
+                raise ValueError(
+                    "Uneven number of interleaved sequence pairs. "
+                    f"Found {count} records.")
+            yield batch
+    else:
+        r1 = FastxReader.from_path(config.input_path)
+        r2 = FastxReader.from_path(config.input2_path)
+        while len(b1 := r1.read_batch(size)):
+            b2 = r2.read_batch(len(b1))
+            n = len(b2)
+            if n:
+                yield RecordBatch.interleave(b1.head(n), b2)
+            if n < len(b1):
+                return
+
+
+def _debug_lines(batch: RecordBatch, d: Decisions, paired: bool) -> None:
+    """--debug: one line per read, or per pair with a hit (the
+    reference's paired debug path prints only those; ref:
+    src/local_filter.rs:424, :497)."""
+    for u in range(d.keep.size):
+        hits = int(d.hits[u])
+        if paired and hits == 0:
+            continue
+        ids = [batch.record(i).id.decode("utf-8", "replace")
+               for i in ((2 * u, 2 * u + 1) if paired else (u,))]
+        kmers = d.kmers[u] if d.kmers is not None else []
+        _eprint(
+            f"DEBUG: {'/'.join(ids)} hits={hits}/{int(d.totals[u])} "
+            f"keep={_rust_bool(bool(d.keep[u]))} kmers=[{','.join(kmers)}]"
+        )

@@ -7,8 +7,11 @@
 reference's format (index/store.py). ``diff`` against a FASTX stream
 takes the same extraction and clears the first index's keys on the device
 (ops/engine.KeptKeys). ``union`` and index-minus-index ``diff`` are host
-set operations on the sorted keys (a merge, np.setdiff1d). Their
-standard-error lines are those of the JAX package's commands.
+set operations on the sorted keys, one linear pass each in the host
+library (io/native_loader.u64_merge_sorted_unique, u64_diff_sorted_unique).
+Input is read in batches by the host library's reader; a Python object
+is made per record only for the lines printed. Their standard-error
+lines are those of the JAX package's commands.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import numpy as np
 from ..config import IndexConfig
 from ..constants import DIFF_STREAM_BATCH, INDEX_BUILD_BATCH, TOOL_NAME, VERSION
 from ..device import resolve_device
-from ..io.fastx import FastxReader, read_batch
+from ..io.fastx import FastxReader, RecordBatch
+from ..io.native_loader import u64_diff_sorted_unique, u64_merge_sorted_unique
 from ..ops.engine import DistinctHashes, IndexBuildPipeline, KeptKeys
 from . import store
 
@@ -57,20 +61,16 @@ def build(config: IndexConfig) -> None:
     _eprint(f"Engine: device extraction pipeline ({pipe.device})")
     distinct = DistinctHashes(pipe.device)
     seq_count = total_bp = 0
-    while True:
-        batch = read_batch(reader, INDEX_BUILD_BATCH)
-        if not batch:
-            break
-        hashes, seq = pipe.extract_batch([r.seq for r in batch])
+    while len(batch := reader.read_batch(INDEX_BUILD_BATCH)):
+        hashes, seq = pipe.extract_arena(batch.arena, batch.seq_starts,
+                                         batch.seq_lens)
         running = distinct.add(hashes, seq, len(batch))
-        for rec, total in zip(batch, running):
-            seq_count += 1
-            total_bp += len(rec.seq)
-            if not config.quiet:
-                _eprint(
-                    f"  {rec.id.decode('utf-8', 'replace')} "
-                    f"({len(rec.seq)}bp), total minimizers: {int(total)}"
-                )
+        seq_count += len(batch)
+        total_bp += int(batch.seq_lens.sum())
+        if not config.quiet:
+            for i, total in enumerate(running.tolist()):
+                _eprint(f"  {_rid(batch, i)} ({int(batch.seq_lens[i])}bp), "
+                        f"total minimizers: {total}")
     keys = distinct.sorted_u64()
     _eprint(
         f"Indexed {keys.size} minimizers from {seq_count} sequence(s) "
@@ -78,6 +78,11 @@ def build(config: IndexConfig) -> None:
     )
     store.write_index(keys, store.IndexHeader.new(k, w), config.output_path)
     _eprint(f"Completed in {time.monotonic() - start:.2f}s")
+
+
+def _rid(batch: RecordBatch, i: int) -> str:
+    off, n = batch.meta[i, :2].tolist()
+    return batch.arena[off:off + n].tobytes().decode("utf-8", "replace")
 
 
 def info(index_path: str) -> None:
@@ -102,10 +107,15 @@ def info(index_path: str) -> None:
 
 
 def _merge_sorted_unique(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Union of two sorted-unique u64 arrays: their concatenation is two
-    ascending runs, which a stable sort (timsort) merges in one pass, and
-    the duplicates are then adjacent. np.union1d would run np.unique over
-    the concatenation."""
+    """Union of two sorted-unique u64 arrays, one linear pass in the host
+    library."""
+    return u64_merge_sorted_unique(a, b)
+
+
+def _merge_sorted_unique_plain(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The plain version of _merge_sorted_unique: their concatenation is
+    two ascending runs, which a stable sort (timsort) merges in one pass,
+    and the duplicates are then adjacent."""
     c = np.concatenate([a, b])
     c.sort(kind="stable")
     first = np.ones(c.size, dtype=bool)
@@ -185,26 +195,24 @@ def _stream_diff_fastx(fastx_path: str, k: int, w: int,
     reader = FastxReader.from_path(fastx_path)
     pipe = IndexBuildPipeline(k, w, 0.0, device=device)
     keys = KeptKeys(first_hashes, pipe.device)
-    seq_count = total_bp = last_reported_gb = 0
-    while True:
-        batch = read_batch(reader, DIFF_STREAM_BATCH)
-        if not batch:
-            break
-        batch_bp = sum(len(r.seq) for r in batch)
-        hashes, seq = pipe.extract_batch([r.seq for r in batch])
+    seq_count = total_bp = 0
+    while len(batch := reader.read_batch(DIFF_STREAM_BATCH)):
+        lens = batch.seq_lens
+        hashes, seq = pipe.extract_arena(batch.arena, batch.seq_starts, lens)
+        # the bases after each record, and the records at which a
+        # gigabase ends (each such record prints a progress line)
+        cum = total_bp + np.cumsum(lens)
+        gb = cum // PROGRESS_BP
+        ends = np.nonzero(gb > np.concatenate(
+            [[total_bp // PROGRESS_BP], gb[:-1]]))[0]
         # running counts only for a batch in which a gigabase ends
-        report = (total_bp + batch_bp) // PROGRESS_BP > last_reported_gb
-        running = keys.remove(hashes, seq if report else None, len(batch))
-        for j, rec in enumerate(batch):
-            seq_count += 1
-            total_bp += len(rec.seq)
-            gb = total_bp // PROGRESS_BP
-            if gb > last_reported_gb:
-                _eprint(
-                    f"  Processed {seq_count} sequences ({total_bp}bp), "
-                    f"removed {int(running[j])} minimizers"
-                )
-                last_reported_gb = gb
+        running = keys.remove(hashes, seq if ends.size else None, len(batch))
+        for j in ends.tolist():
+            _eprint(f"  Processed {seq_count + j + 1} sequences "
+                    f"({int(cum[j])}bp), removed {int(running[j])} "
+                    "minimizers")
+        seq_count += len(batch)
+        total_bp = int(cum[-1])
     _eprint(f"Processed {seq_count} sequences ({total_bp}bp) from FASTX file")
     return keys.remaining()
 
@@ -255,5 +263,4 @@ def diff(first: str, second: str, kmer_length: int | None,
             f"w={second_idx.header.window_size}, but first index has "
             f"k={header.kmer_length}, w={header.window_size}"
         )
-    finish(np.setdiff1d(first_idx.hashes, second_idx.hashes,
-                        assume_unique=True))
+    finish(u64_diff_sorted_unique(first_idx.hashes, second_idx.hashes))

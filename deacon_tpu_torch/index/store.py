@@ -7,6 +7,11 @@ u64 hash varints; ref: src/index.rs:17-31, 130-164).
 In memory the index is a **sorted** uint64 array (plus count), not a hash set:
 membership probes are branchless vectorized binary searches that map directly
 onto the device-side sorted-array probe in HBM (SURVEY §2.2 "rustc-hash" row).
+
+The hash payload is decoded and written by the host library
+(io/native_loader: the varint decoder, parallel for an all-9-byte
+payload, and the parallel-encode index writer); utils/bincode's NumPy
+codec is their plain version.
 """
 
 from __future__ import annotations
@@ -19,6 +24,12 @@ from pathlib import Path
 import numpy as np
 
 from ..constants import INDEX_FORMAT_VERSION
+from ..io.native_loader import (
+    decode_u64_varint,
+    index_write_sorted,
+    u64_sort_unique,
+    u64_sorted_unique,
+)
 from ..utils import bincode
 
 
@@ -166,16 +177,17 @@ def load_index(path: str | Path) -> MinimizerIndex:
         head = data[:32]
     header, pos = _read_header(buf, 0)
     count, pos = bincode.decode_uint(memoryview(head), pos)
-    hashes, _ = bincode.decode_u64_array(buf, pos, count)
+    hashes, _ = decode_u64_varint(buf, pos, count)
     return MinimizerIndex(header, _sorted_unique(hashes))  # set semantics
 
 
 def _sorted_unique(hashes: np.ndarray) -> np.ndarray:
-    """np.unique, skipped when the array is already strictly increasing
-    (files this framework writes are)."""
-    if hashes.size < 2 or bool(np.all(hashes[1:] > hashes[:-1])):
+    """Sorted unique keys, the sort skipped when the array is already
+    strictly increasing (files this framework writes are)."""
+    if hashes.size < 2 or u64_sorted_unique(hashes):
         return hashes
-    return np.unique(hashes)
+    # a copy: the sort works in place, and ``hashes`` is the caller's
+    return u64_sort_unique(np.array(hashes, dtype=np.uint64))
 
 
 def write_index(
@@ -188,9 +200,36 @@ def write_index(
     provenance trailer (``scheme=None`` omits it — used when composing with
     foreign-index content whose scheme is unknown).
 
-    ``output_path`` of None or "-" writes to stdout.
+    ``output_path`` of None or "-" writes to stdout. A file is written
+    under a temporary name and renamed when complete.
     """
     uniq = _sorted_unique(np.asarray(hashes, dtype=np.uint64))
+    trailer = (
+        PROVENANCE_MAGIC + bytes([scheme]) if scheme is not None else b""
+    )
+    fields = (header.format_version, header.kmer_length, header.window_size)
+    if output_path is None or str(output_path) == "-":
+        sys.stdout.flush()
+        sys.stdout.buffer.flush()
+        index_write_sorted(uniq, "-", *fields, trailer)
+        return
+    tmp = str(output_path) + f".tmp{os.getpid()}"
+    try:
+        index_write_sorted(uniq, tmp, *fields, trailer)
+    except OSError:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+    os.replace(tmp, output_path)
+
+
+def write_index_plain(
+    hashes: np.ndarray,
+    header: IndexHeader,
+    output_path: str | Path,
+    scheme: int | None = SCHEME_DXTP_FMIX32_V1,
+) -> None:
+    """The plain version of write_index (to a file), on utils/bincode."""
+    uniq = np.unique(np.asarray(hashes, dtype=np.uint64))
     trailer = (
         PROVENANCE_MAGIC + bytes([scheme]) if scheme is not None else b""
     )
@@ -198,18 +237,7 @@ def write_index(
         bytes([header.format_version, header.kmer_length, header.window_size])
         + bincode.encode_uint(int(uniq.size))
     )
-    payload = bincode.encode_sorted_u64_array(uniq)  # may be GBs
-    if output_path is None or str(output_path) == "-":
-        sys.stdout.buffer.write(head)
-        sys.stdout.buffer.write(payload)
-        if trailer:
-            sys.stdout.buffer.write(trailer)
-        sys.stdout.buffer.flush()
-    else:
-        tmp = str(output_path) + f".tmp{os.getpid()}"
-        with open(tmp, "wb") as f:
-            f.write(head)
-            f.write(payload)
-            if trailer:
-                f.write(trailer)
-        os.replace(tmp, output_path)
+    with open(output_path, "wb") as f:
+        f.write(head)
+        f.write(bincode.encode_sorted_u64_array(uniq))
+        f.write(trailer)

@@ -7,8 +7,13 @@ bytes (gzip, zstd, xz, bzip2). Sequences are returned newline-free; FASTA
 records may span multiple lines (ref behavior: needletail normalizes,
 exercised by tests/filter_tests.rs:1132-1187).
 
-Pure-Python parser; compression codecs are imported only when a stream
-needs them (zstd through the system's libzstd, io/zstd.py).
+Every path of the port reads through the host library's reader
+(``FastxReader.from_path`` returns io/native_loader.NativeFastxReader),
+in batches of records that share one byte arena (RecordBatch). The
+pure-Python parser here (FastxReader over a stream from
+open_maybe_compressed) is its plain version, which the tests hold it
+against; its codecs are imported only when a stream needs them (zstd
+through the system's libzstd, io/zstd.py).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import os
 import sys
 from dataclasses import dataclass
 from typing import BinaryIO, Iterator
+
+import numpy as np
 
 
 @dataclass
@@ -30,6 +37,73 @@ class Record:
 
 class FastxParseError(ValueError):
     pass
+
+
+class RecordBatch:
+    """A batch of records as offsets into one byte arena: ``meta`` is
+    (n, 6) int64 rows of (id offset, id length, seq offset, seq length,
+    qual offset or -1 for FASTA, qual length)."""
+
+    def __init__(self, meta: np.ndarray, arena: np.ndarray):
+        self.meta = meta
+        self.arena = arena
+
+    def __len__(self) -> int:
+        return int(self.meta.shape[0])
+
+    @property
+    def seq_starts(self) -> np.ndarray:
+        return self.meta[:, 2]
+
+    @property
+    def seq_lens(self) -> np.ndarray:
+        return self.meta[:, 3]
+
+    def record(self, i: int) -> Record:
+        io_, il, so, sl, qo, ql = self.meta[i].tolist()
+        a = self.arena
+        return Record(a[io_:io_ + il].tobytes(), a[so:so + sl].tobytes(),
+                      a[qo:qo + ql].tobytes() if qo >= 0 else None, qo >= 0)
+
+    def records(self) -> list[Record]:
+        return [self.record(i) for i in range(len(self))]
+
+    def head(self, n: int) -> "RecordBatch":
+        """The first n records (sharing the arena)."""
+        return RecordBatch(self.meta[:n], self.arena)
+
+    @classmethod
+    def interleave(cls, first: "RecordBatch",
+                   second: "RecordBatch") -> "RecordBatch":
+        """Records first[0], second[0], first[1], ... of two batches of
+        equal length, in one arena."""
+        n = len(first)
+        meta = np.empty((2 * n, 6), dtype=np.int64)
+        meta[0::2] = first.meta
+        shifted = second.meta.copy()
+        shifted[:, [0, 2]] += first.arena.size
+        shifted[:, 4] = np.where(shifted[:, 4] >= 0,
+                                 shifted[:, 4] + first.arena.size, -1)
+        meta[1::2] = shifted
+        return cls(meta, np.concatenate([first.arena, second.arena]))
+
+    @classmethod
+    def from_records(cls, records: list[Record]) -> "RecordBatch":
+        """The batch of parsed Records (the plain parser's batch form)."""
+        parts: list[bytes] = []
+        meta = np.zeros((len(records), 6), dtype=np.int64)
+        off = 0
+        for i, r in enumerate(records):
+            fields = (r.id, r.seq, r.qual)
+            for j, f in enumerate(fields):
+                if f is None:
+                    meta[i, 2 * j:2 * j + 2] = (-1, 0)
+                    continue
+                meta[i, 2 * j:2 * j + 2] = (off, len(f))
+                parts.append(f)
+                off += len(f)
+        arena = np.frombuffer(b"".join(parts), dtype=np.uint8)
+        return cls(meta, arena)
 
 
 _MAGICS = (
@@ -101,7 +175,10 @@ class FastxReader:
 
     @classmethod
     def from_path(cls, path: str | os.PathLike | None):
-        return cls(open_maybe_compressed(path))
+        """The host library's reader over ``path`` (None or "-": stdin)."""
+        from .native_loader import NativeFastxReader
+
+        return NativeFastxReader(path)
 
     def _readline(self) -> bytes:
         if self._pending is not None:
@@ -159,14 +236,3 @@ class FastxReader:
                 break
             parts.append(line.rstrip(b"\r\n"))
         return Record(rid, b"".join(parts), None, False)
-
-
-def read_batch(reader: Iterator[Record], batch_size: int) -> list[Record]:
-    """Pull up to batch_size records (ref batching: src/remote_filter.rs:727)."""
-    out: list[Record] = []
-    for _ in range(batch_size):
-        try:
-            out.append(next(reader))
-        except StopIteration:
-            break
-    return out

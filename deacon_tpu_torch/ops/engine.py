@@ -63,13 +63,16 @@ from ..device import resolve_device
 from . import minimizers_np as mnp
 from .hash import as_i64, lsr, xxh3_64, xxh3_64_u128
 from .kernels import select_compact, select_csum, values_argmin, values_select
-from .pack import (
+from .pack import (  # noqa: F401 (_Row, pack_rows_packed: the module's API)
     INDEX_CODE,
+    RowBlock,
     _Row,
-    chunk_rows,
+    chunk_spans,
     default_budget_frac,
+    effective_lengths,
+    join_seqs,
+    pack_block,
     pack_rows_packed,
-    rows_for_read,
     v4_row_budget,
 )
 from .radix_probe import (
@@ -242,6 +245,13 @@ def upload(arrays: list[np.ndarray], device: torch.device) -> list[torch.Tensor]
     ]
 
 
+def tile_index(tiles, lengths: np.ndarray) -> np.ndarray:
+    """Index of the first tile class, in the order given, whose rows hold
+    each length; the last class for longer ones."""
+    fits = np.asarray(lengths)[:, None] <= np.array([L for L, _ in tiles])
+    return np.where(fits.any(axis=1), fits.argmax(axis=1), len(tiles) - 1)
+
+
 class FetchGroup:
     """Cross-batch device-to-host fetch: outputs of every batch launched
     since the last fetch are concatenated on the device and copied back
@@ -330,56 +340,53 @@ class DevicePipeline:
         self.rerun_batches = 0
         self.rerun_units = 0
 
-    def _rows_for(self, rid: int, mate: int, seq: bytes, prefix_length: int):
-        return rows_for_read(
-            rid, mate, seq, prefix_length,
-            k=self.k, l=self.l, stride=self._stride, max_len=self.L_max,
-        )
+    def launch_counts(self, arena: np.ndarray, start: np.ndarray,
+                      length: np.ndarray, unit: np.ndarray,
+                      mate: np.ndarray, n_logical: int,
+                      prefix_length: int):
+        """Launch device batches for sequences ``arena[start[i]:start[i] +
+        length[i]]``, mate ``mate[i]`` of read unit ``unit[i]`` (units
+        ascending, a unit's mates adjacent); returns a resolve() ->
+        (hits, totals) closure over the ``n_logical`` units. Device work
+        stays in flight until then.
 
-    def _tile_for(self, max_row_len: int) -> tuple[int, int]:
-        for L, R in self.tiles:
-            if max_row_len <= L:
-                return (L, R)
-        return self.tiles[-1]
-
-    def launch_counts(self, units, n_logical: int, prefix_length: int):
-        """Launch device batches for all units; returns a resolve() ->
-        (hits, totals) closure. Device work stays in flight until then."""
-        per_tile: dict[tuple[int, int], list[list[_Row]]] = {}
-        for gid, mates in units:
-            rows: list[_Row] = []
-            for mate, seq in mates:
-                rows.extend(self._rows_for(gid, mate, seq, prefix_length))
-            if not rows:
-                continue
-            tile = self._tile_for(max(len(r.seq) for r in rows))
-            per_tile.setdefault(tile, []).append(rows)
-
+        Each unit goes to the smallest tile class whose rows hold its
+        longest row; tile classes launch in order of their first unit,
+        and a tile's units fill batches in order, a batch taking units
+        while their rows fit in R (a unit of more than R rows gets a
+        batch of its own)."""
+        eff = effective_lengths(arena, start, length, prefix_length, self.k)
+        seq, rstart, rlen, cstart = chunk_spans(
+            start, eff, k=self.k, l=self.l, stride=self._stride,
+            max_len=self.L_max)
+        rows = RowBlock(arena, rstart, rlen, unit[seq], mate[seq], cstart)
         in_flight: list[tuple] = []
-        for (L, R), groups in per_tile.items():
-            batch: list[_Row] = []
-            gids: list[int] = []
-
-            def flush():
-                nonlocal batch, gids
-                if batch:
-                    local = {g: i for i, g in enumerate(gids)}
-                    rows_local = [
-                        _Row(local[r.rid], r.mate, r.chunk_start, r.seq)
-                        for r in batch
-                    ]
+        if len(rows):
+            # per unit with rows: its tile class and its row count
+            units, first_row, n_rows = np.unique(
+                rows.rid, return_index=True, return_counts=True)
+            tile = tile_index(self.tiles,
+                              np.maximum.reduceat(rows.length, first_row))
+            tile_of_row = np.repeat(tile, n_rows)
+            _, tile_first = np.unique(tile, return_index=True)
+            for t in tile[np.sort(tile_first)].tolist():
+                L, R = self.tiles[t]
+                t_units = np.nonzero(tile == t)[0]
+                t_rows = rows.take(tile_of_row == t)
+                cum = np.cumsum(n_rows[t_units])
+                a = 0
+                while a < t_units.size:
+                    before = cum[a - 1] if a else 0
+                    b = max(a + 1, int(np.searchsorted(cum, before + R,
+                                                       side="right")))
+                    r0, r1 = int(before), int(cum[b - 1])
+                    batch = t_rows.take(slice(r0, r1))
+                    gids = units[t_units[a:b]]
+                    batch.rid = np.searchsorted(gids, batch.rid)
                     budget = v4_row_budget(L, self.w, self.budget_frac)
-                    out, rt = self._launch_batch(rows_local, L, len(gids),
-                                                 budget)
-                    in_flight.append((gids, rows_local, L, budget, out, rt))
-                    batch, gids = [], []
-
-            for rows in groups:
-                if len(batch) + len(rows) > R:
-                    flush()
-                batch.extend(rows)
-                gids.append(rows[0].rid)
-            flush()
+                    out, rt = self._launch_batch(batch, L, gids.size, budget)
+                    in_flight.append((gids, batch, L, budget, out, rt))
+                    a = b
 
         ticket = self.fetch_group.register([f[4] for f in in_flight])
 
@@ -389,29 +396,30 @@ class DevicePipeline:
             fetched = self.fetch_group.materialize(ticket)
             for (gids, rows, L, budget, _out, rt), arr in zip(in_flight,
                                                               fetched):
-                n = len(gids)
+                n = gids.size
                 h, t = arr[:n], arr[n:2 * n]
                 if int(arr[2 * n]) > budget:
                     h, t = self._rerun_over_budget(rows, rt, L, budget, h, t)
-                g = np.asarray(gids, dtype=np.int64)
-                hits[g] += h
-                totals[g] += t
+                hits[gids] += h
+                totals[gids] += t
             return hits, totals
 
         return resolve
 
-    def _rerun_over_budget(self, rows, rt, L, budget, hits, totals):
+    def _rerun_over_budget(self, rows: RowBlock, rt, L, budget, hits,
+                           totals):
         """Exact (hits, totals) of a batch with rows over budget: the units
         owning those rows run again on the device, with the budget rounded
         up to their largest row total (at most L, so every slot fits)."""
         row_tot = rt.cpu().numpy()
-        rid = np.fromiter((r.rid for r in rows), np.int64, len(rows))
+        rid = rows.rid
         over = np.unique(rid[row_tot > budget])
         local = np.full(len(hits), -1, np.int64)
         local[over] = np.arange(over.size)
-        sel = [_Row(int(local[r.rid]), r.mate, r.chunk_start, r.seq)
-               for r in rows if local[r.rid] >= 0]
-        need = int(row_tot[local[rid] >= 0].max())
+        mine = local[rid] >= 0
+        sel = rows.take(mine)
+        sel.rid = local[sel.rid]
+        need = int(row_tot[mine].max())
         out, _ = self._launch_batch(sel, L, over.size,
                                     min(L, -(-need // 128) * 128))
         arr = out.cpu().numpy()
@@ -422,19 +430,17 @@ class DevicePipeline:
         self.rerun_units += int(over.size)
         return hits, totals
 
-    def _launch_batch(self, rows: list[_Row], L: int, n_units: int,
+    def _launch_batch(self, rows: RowBlock, L: int, n_units: int,
                       budget: int):
         """Pack and launch one batch; returns (fused output, row totals)."""
         return self._step(rows, L, n_units, budget, self.device,
                           [self.table])
 
-    def _step(self, rows: list[_Row], L: int, n_units: int, budget: int,
+    def _step(self, rows: RowBlock, L: int, n_units: int, budget: int,
               device: torch.device, tables):
         """engine_step of one batch on ``device`` against ``tables``."""
         pc, pv, mlen, allow_short, rid, mate, cstart = upload(
-            list(pack_rows_packed(rows, len(rows), L, self.k, self.l)),
-            device,
-        )
+            list(pack_block(rows, len(rows), L, self.k, self.l)), device)
         return engine_step(
             pc, pv, mlen, allow_short, rid, mate, cstart, tables,
             k=self.k, w=self.w, budget=budget, num_segments=n_units,
@@ -449,12 +455,18 @@ class DevicePipeline:
         return self.launch_paired(pairs, prefix_length)()
 
     def launch_single(self, seqs: list[bytes], prefix_length: int):
-        units = ((i, [(0, s)]) for i, s in enumerate(seqs))
-        return self.launch_counts(units, len(seqs), prefix_length)
+        arena, start, length = join_seqs(seqs)
+        n = len(seqs)
+        return self.launch_counts(arena, start, length,
+                                  np.arange(n, dtype=np.int64),
+                                  np.zeros(n, dtype=np.int64), n,
+                                  prefix_length)
 
     def launch_paired(self, pairs, prefix_length: int):
-        units = ((i, [(0, s1), (1, s2)]) for i, (s1, s2) in enumerate(pairs))
-        return self.launch_counts(units, len(pairs), prefix_length)
+        arena, start, length = join_seqs([s for p in pairs for s in p])
+        i = np.arange(2 * len(pairs), dtype=np.int64)
+        return self.launch_counts(arena, start, length, i // 2, i % 2,
+                                  len(pairs), prefix_length)
 
 
 # ---------------------------------------------------------------------------
@@ -601,16 +613,10 @@ class IndexBuildPipeline:
             ).to(self.device)
         self.rerun_rows = 0
 
-    def _tile_for(self, n: int) -> tuple[int, int]:
-        for L, R in self.tiles:
-            if n <= L:
-                return (L, R)
-        return self.tiles[-1]
-
-    def _launch(self, rows: list[_Row], L: int, Br: int):
+    def _launch(self, rows: RowBlock, L: int, Br: int):
         pc, pv, mlen, allow_short, rid = upload(
-            list(pack_rows_packed(rows, len(rows), L, self.k, self.l,
-                                  code_table=INDEX_CODE)[:5]),
+            list(pack_block(rows, len(rows), L, self.k, self.l,
+                            code_table=INDEX_CODE)[:5]),
             self.device,
         )
         h, valid, rt = extract_step(pc, pv, mlen, allow_short,
@@ -628,8 +634,7 @@ class IndexBuildPipeline:
                 over = np.nonzero(row_tot > Br)[0]
                 valid &= (rt <= Br)[:, None]
                 need = min(L, -(-int(row_tot[over].max()) // 128) * 128)
-                sel = [rows[i] for i in over]
-                h2, valid2, _, rid2 = self._launch(sel, L, need)
+                h2, valid2, _, rid2 = self._launch(rows.take(over), L, need)
                 out_h.append(h2[valid2])
                 out_r.append(rid2[:, None].expand_as(h2)[valid2])
                 self.rerun_rows += over.size
@@ -637,21 +642,31 @@ class IndexBuildPipeline:
             out_r.append(rid[:, None].expand_as(h)[valid])
 
     def extract_batch(self, seqs: list[bytes]):
+        """extract_arena of a list of sequences."""
+        return self.extract_arena(*join_seqs(seqs))
+
+    def extract_arena(self, arena: np.ndarray, start: np.ndarray,
+                      length: np.ndarray):
         """-> ((n,) int64 hashes, (n,) int64 sequence index) on the device:
-        every minimizer hash of every sequence (duplicates possible)."""
-        per_tile: dict[tuple[int, int], list[_Row]] = {}
-        for i, s in enumerate(seqs):
-            for row in chunk_rows(i, 0, s, k=self.k, l=self.l,
-                                  stride=self._stride, max_len=self.L_max):
-                per_tile.setdefault(self._tile_for(len(row.seq)),
-                                    []).append(row)
+        every minimizer hash of every sequence ``arena[start[i]:start[i] +
+        length[i]]`` (duplicates possible). Each row goes to the smallest
+        tile class that holds it; tile classes launch in order of their
+        first row, R rows a batch."""
+        seq, rstart, rlen, cstart = chunk_spans(
+            start, length, k=self.k, l=self.l, stride=self._stride,
+            max_len=self.L_max)
+        rows = RowBlock(arena, rstart, rlen, seq, np.zeros_like(seq), cstart)
+        tile = tile_index(self.tiles, rlen)
+        _, tile_first = np.unique(tile, return_index=True)
         out_h: list[torch.Tensor] = []
         out_r: list[torch.Tensor] = []
         launched = []
-        for (L, R), rows in per_tile.items():
+        for t in tile[np.sort(tile_first)].tolist():
+            L, R = self.tiles[t]
+            t_rows = rows.take(tile == t)
             Br = v4_row_budget(L, self.w, self.budget_frac)
-            for a in range(0, len(rows), R):
-                chunk = rows[a:a + R]
+            for a in range(0, len(t_rows), R):
+                chunk = t_rows.take(slice(a, a + R))
                 h, valid, rt, rid = self._launch(chunk, L, Br)
                 launched.append((chunk, L, Br, h, rt, rid, valid))
                 if len(launched) >= self.RESOLVE_DEPTH:
