@@ -123,9 +123,27 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    trip in each output codec, with MB/s; host extraction against the
    NumPy oracle on ~1 Mbp at k=31 and k=56. The file is deleted after it.
 
+18. the multi-process modes on the card, from the phase-15 file (after
+   phase 16, before 17), each rank a spawned process of this script on
+   cuda:0 with its DEACON_* variables (the ranks share the card, so their
+   collectives run over gloo): two ranks of ``filter --mesh pod`` (each
+   rank's output), two of ``--mesh pod-data`` single, paired and BGZF,
+   four of ``--mesh pod-2d`` (DEACON_POD_SHARDS=2), all on phase 4's
+   reads written as ~20 Mbp of FASTQ (a BGZF copy of the single file);
+   two of ``index build --mesh pod-data`` over a seeded 20 Mbp FASTA; two
+   of ``server --mesh pod`` with ``client`` against rank 0; and
+   ``make_server`` on make_mesh(1, 2, ["cuda:0"] * 2) with ``client``.
+   Every output byte-identical to the one-process command on the card
+   from the same file; each rank's counters set to 0 before its command
+   and read after: K1 and K2 launch in every filter rank (K1 in every
+   build rank), and in the pod modes K2 runs on exactly the rank's block
+   of rows (shard_rows). Printed per run: Mbp/s (input over the slowest
+   rank's wall), and per rank its seconds, load and pipeline seconds,
+   peak GB, backend and launches.
+
 Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 14, 4, 4a, 4b, 4c, 13,
-4d, 15, 16, 17, 5, 6, 7, 7b, 8. Each switch is set in os.environ only around
-its phase.
+4d, 15, 16, 18, 17, 5, 6, 7, 7b, 8. Each switch is set in os.environ only
+around its phase.
 
 ``python3 chip_smoke.py --k1`` runs phases 0 and 1 and then K1's part of
 phase 2 alone, printing its numbers as the last line and no result: the
@@ -144,7 +162,10 @@ phase 9's tiles (against csum_slots over select_csum_plain's plane) and
 ``--k5`` for the K5 route on phase 10's (against compact_rows over
 flag_mask and values_argmin_plain's planes gathered at wp). Copied into
 a checkout of an earlier commit and run there, each times that commit's
-kernel (or route) by the same measures.
+kernel (or route) by the same measures. ``python3 chip_smoke.py --pod4``
+needs four cards: it runs phases 0 and 1, then the pod modes with each
+rank on a card of its own, where the collectives run over nccl
+(pods_on_cards), printing its numbers as the last line and no result.
 
 Every temporary file lives in a tempfile directory outside the checkout
 and is deleted; nothing is left running. Exits non-zero, printing no
@@ -1893,9 +1914,9 @@ def http_get(url: str) -> bytes:
 
 def file_phases(keys_u, genome: bytes, g_hashes, single, pairs,
                 ont) -> dict:
-    """Phases 15, 16 and 17 on phase 4's keys and reads, the keys written
-    once to an index file in a tempdir (the free space printed first; too
-    little fails the phase) and deleted after phase 17."""
+    """Phases 15, 16, 18 and 17 on phase 4's keys and reads, the keys
+    written once to an index file in a tempdir (the free space printed
+    first; too little fails the phase) and deleted after phase 17."""
     tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_file_")
     try:
         n = int(keys_u.numel())
@@ -1914,6 +1935,7 @@ def file_phases(keys_u, genome: bytes, g_hashes, single, pairs,
         out = {"15": phase15_server(idx, keys_u, keys_host, write_s, single,
                                     pairs, tmp)}
         out["16"] = phase16_index_ops(idx, keys_host, genome, g_hashes, tmp)
+        out["18"] = phase18_pod(idx, single, pairs, ont, tmp)
         out["17"] = phase17_host_io(idx, keys_host, single + ont, pairs,
                                     tmp)
         return out
@@ -2092,6 +2114,453 @@ def phase15_server(idx: str, keys_u, keys_host, write_s: float, single,
     log("15 server and client at panhuman scale", t0, **{
         n: json.dumps(v) for n, v in numbers.items()})
     return numbers
+
+
+#: seconds a phase-18 run's ranks may take together before they are killed
+POD_RUN_LIMIT_S = 300
+
+
+def _pod_rank(queue, rank_env: dict, argv: list) -> None:
+    """One rank of a phase-18 run, in a spawned process: ``cli_main(argv)``
+    on cuda:0 with the rank's DEACON_* variables, the kernels' counters
+    set to 0 just before and read just after. Puts its exit code, seconds,
+    launches, the (row_lo, rows) blocks K2 ran on, the collectives'
+    backend, the card's peak GB, its load and pipeline-build seconds, the
+    seconds and count of its hits' all-reduces and its standard error's
+    tail on ``queue``."""
+    from deacon_tpu_torch.filter import engine as fengine
+    from deacon_tpu_torch.index import store
+    from deacon_tpu_torch.ops import radix_probe as rp
+    from deacon_tpu_torch.parallel import multihost
+
+    os.environ.update(rank_env)
+    rank = int(rank_env.get("DEACON_PROC_ID", "0"))
+    secs = {"load_s": 0.0, "pipeline_s": 0.0, "allreduce_s": 0.0}
+    calls = {"allreduce_s": 0}
+    blocks = set()
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t
+                calls[key] = calls.get(key, 0) + 1
+        return run
+
+    probe = rp.probe_hits
+
+    def probe_hits(slots, spill, keys, srid, first, **kw):
+        blocks.add((int(kw.get("row_lo", 0)), int(slots.shape[0])))
+        return probe(slots, spill, keys, srid, first, **kw)
+
+    rp.probe_hits = probe_hits
+    store.load_index_range = timed(store.load_index_range, "load_s")
+    fengine.load_index = timed(fengine.load_index, "load_s")
+    fengine.make_decider = timed(fengine.make_decider, "pipeline_s")
+    multihost.PodMesh.sum_over_shards = timed(
+        multihost.PodMesh.sum_over_shards, "allreduce_s")
+    backends = []
+    choose = multihost.collective_backend
+
+    def collective_backend(every):
+        backends.append(choose(every))
+        return backends[-1]
+
+    multihost.collective_backend = collective_backend
+    err = io.StringIO()
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli_main([str(a) for a in argv])
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        rc = f"{type(e).__name__}: {e}"
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    queue.put({"rank": rank, "rc": rc, "s": round(wall, 3),
+               "launches": launch_counts(), "k2_blocks": sorted(blocks),
+               "backend": backends[-1] if backends else None,
+               "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)
+               if card else None,
+               **{n: round(v, 3) for n, v in secs.items()},
+               "allreduces": calls["allreduce_s"],
+               "stderr": err.getvalue()[-1500:]})
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def pod_ranks(n: int, argv, env=None, coord: bool = True,
+              during=None) -> list:
+    """Run ``n`` ranks of one command (``argv``, or ``argv(rank)``) in
+    spawned processes of this script (the rank's DEACON_* variables and
+    ``env``, or ``env(rank)``, in each process's environment from its
+    start; DEACON_COORD a free local port unless ``coord`` is false), call
+    ``during()`` while they run (for a server: rank 0 gets SIGINT after
+    it), and return the ranks' reports by rank. Raises if a rank exits
+    non-zero or the ranks outlast POD_RUN_LIMIT_S; kills them then."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import signal
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        rank_env = {"DEACON_NUM_PROC": str(n), "DEACON_PROC_ID": str(r),
+                    **((env(r) if callable(env) else env) or {})}
+        if coord:
+            rank_env["DEACON_COORD"] = f"127.0.0.1:{port}"
+        args = argv(r) if callable(argv) else argv
+        procs.append(ctx.Process(target=_pod_rank, args=(q, rank_env, args)))
+        saved = {k: os.environ.get(k) for k in rank_env}
+        os.environ.update(rank_env)  # a spawned child starts with these
+        try:
+            procs[-1].start()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    deadline = time.perf_counter() + POD_RUN_LIMIT_S
+    reports = {}
+    try:
+        if during is not None:
+            try:
+                during()
+            finally:
+                os.kill(procs[0].pid, signal.SIGINT)
+        while len(reports) < n:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                raise AssertionError(f"phase 18: {args[:2]} ranks outlasted "
+                                     f"{POD_RUN_LIMIT_S} s")
+            try:
+                got = q.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"phase 18: a rank died ({dead})")
+                continue
+            reports[got["rank"]] = got
+        for p in procs:
+            p.join(timeout=30)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    out = [reports[r] for r in range(n)]
+    bad = [x for x in out if x["rc"] != 0]
+    if bad:
+        raise AssertionError(f"phase 18: {args[:2]} rank failed: {bad}")
+    return out
+
+
+def pod_block(shard: int, n_shard: int, p: int) -> tuple:
+    """(row_lo, rows) of a pod rank's block of the 2**p-row table."""
+    from deacon_tpu_torch.ops.radix_probe import shard_rows
+
+    r0, r1 = shard_rows(shard, n_shard, p)
+    return (r0, r1 - r0)
+
+
+def pod_record(label: str, reports: list, n_bp: int, filter_ranks=True,
+               blocks=None, backend="gloo") -> dict:
+    """A multi-process run's numbers: Mbp/s over the slowest rank's wall
+    and each rank's report. Raises unless K1 and K2 launched in every
+    rank (``filter_ranks``), K2 ran on exactly ``blocks(rank)`` (pod
+    modes) and the backend rule chose ``backend`` in every rank that
+    made a pod mesh."""
+    for x in reports:
+        lc = x["launches"]
+        if filter_ranks and (lc["K1"] <= 0 or lc["K2"] <= 0):
+            raise AssertionError(f"{label} rank {x['rank']}: launches {lc}")
+        if blocks is not None and x["k2_blocks"] != [blocks(x["rank"])]:
+            raise AssertionError(
+                f"{label} rank {x['rank']}: K2 ran on {x['k2_blocks']}, "
+                f"not rows {blocks(x['rank'])}")
+        if blocks is not None and x["backend"] != backend:
+            raise AssertionError(
+                f"{label} rank {x['rank']}: the backend rule chose "
+                f"{x['backend']}, not {backend}")
+    wall = max(x["s"] for x in reports)
+    return {"mbp_per_s": round(n_bp / 1e6 / wall, 3) if n_bp else None,
+            "ranks": [{n: x[n] for n in (
+                "s", "load_s", "pipeline_s", "allreduce_s", "allreduces",
+                "peak_gb", "backend", "launches", "k2_blocks")}
+                for x in reports]}
+
+
+def same_bytes(path: str, want: bytes, what: str) -> None:
+    if read_bytes(path) != want:
+        raise AssertionError(f"{what} differs from the one-process output")
+
+
+def phase18_pod(idx: str, single, pairs, ont, tmp: str) -> dict:
+    """Phase 18: the multi-process modes on the card, each rank a spawned
+    process of this script on cuda:0 (the ranks share the card, so their
+    collectives run over gloo), from the panhuman file of phase 15: two
+    ranks of ``filter --mesh pod``; two of ``--mesh pod-data``, single,
+    paired and BGZF; four of ``--mesh pod-2d`` (DEACON_POD_SHARDS=2); two
+    of ``index build --mesh pod-data`` over a seeded 20 Mbp FASTA; two of
+    ``server --mesh pod`` answering ``client``; and ``make_server`` on
+    make_mesh(1, 2, ["cuda:0"] * 2) answering ``client``. Every output is
+    byte-identical to the one-process command on the card from the same
+    file; K1 and K2 launch in every filter rank (K1 in every build rank),
+    and in the pod modes K2 runs on exactly the rank's block of rows and
+    the backend rule picks gloo (the ranks share the card)."""
+    import threading
+
+    from deacon_tpu_torch.ops.radix_probe import choose_p
+    from deacon_tpu_torch.parallel.sharded import make_mesh as mk_mesh
+    from deacon_tpu_torch.server.app import make_server
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    fq = os.path.join(tmp, "pod_s.fq")
+    r1, r2 = (os.path.join(tmp, f"pod_r{m}.fq") for m in (1, 2))
+    write_fastq(fq, [(b"s%d" % i, r) for i, r in enumerate(single + ont)])
+    write_fastq(r1, [(b"p%d/1" % i, a) for i, (a, _) in enumerate(pairs)])
+    write_fastq(r2, [(b"p%d/2" % i, b) for i, (_, b) in enumerate(pairs)])
+    gz = fq + ".gz"
+    with open(gz, "wb") as f:
+        f.write(bgzf(read_bytes(fq)))
+    fa = os.path.join(tmp, "pod_build.fa")
+    recs = dirty_records(rng, 5, SCALE_RECORD_BP, SCALE_RECORD_BP + 1)
+    write_fasta(fa, recs)
+    bp = {"single": sum(len(r) for r in single + ont),
+          "paired": sum(len(a) + len(b) for a, b in pairs),
+          "fasta": sum(len(x) for _, x in recs)}
+    _, count = load_header_and_count(idx)
+    p = choose_p(count)
+    runs, ref = {}, {}
+    for name, inputs in (("single", [fq]), ("paired", [r1, r2])):
+        o = os.path.join(tmp, f"pod_ref_{name}.fq")
+        extra = ["-O", o + ".2"] if name == "paired" else []
+        wall, _ = cli_timed(["filter", idx, *inputs, "-o", o, *extra,
+                             "--device", "cuda"])
+        ref[name] = (read_bytes(o), read_bytes(o + ".2") if extra else None)
+        runs[f"one-process filter {name}"] = {
+            "s": round(wall, 3), "mbp_per_s": round(bp[name] / 1e6 / wall,
+                                                    3)}
+    if not ref["single"][0] or not ref["paired"][0]:
+        raise AssertionError("phase 18: a reference output is empty")
+    ref_idx = os.path.join(tmp, "pod_ref.idx")
+    t = time.perf_counter()
+    cli_index_build(fa, ref_idx, K_, W_, "cuda")
+    runs["one-process index build"] = {
+        "s": round(time.perf_counter() - t, 3)}
+
+    def record(label, reports, n_bp, **checks):
+        runs[label] = pod_record(label, reports, n_bp, **checks)
+
+    def block_of(n_shard):
+        return lambda rank: pod_block(rank % n_shard, n_shard, p)
+
+    outs = [os.path.join(tmp, f"pod{r}.fq") for r in range(2)]
+    reports = pod_ranks(2, lambda r: ["filter", idx, fq, "-o", outs[r],
+                                      "--device", "cuda", "--mesh", "pod"])
+    record("pod 2 ranks single", reports, bp["single"],
+           blocks=block_of(2))
+    for o in outs:
+        same_bytes(o, ref["single"][0], "--mesh pod")
+    for name, inputs in (("single", [fq]), ("paired", [r1, r2]),
+                         ("bgzf", [gz])):
+        o = os.path.join(tmp, f"pd_{name}.fq")
+        extra = ["-O", o + ".2"] if name == "paired" else []
+        reports = pod_ranks(2, ["filter", idx, *inputs, "-o", o, *extra,
+                                "--device", "cuda", "--mesh", "pod-data"],
+                            coord=False)
+        want = ref["paired" if name == "paired" else "single"]
+        same_bytes(o, want[0], f"--mesh pod-data {name}")
+        if extra:
+            same_bytes(o + ".2", want[1], "--mesh pod-data paired -O")
+        record(f"pod-data 2 ranks {name}", reports,
+               bp["paired" if name == "paired" else "single"])
+    o = os.path.join(tmp, "p2d.fq")
+    reports = pod_ranks(4, ["filter", idx, fq, "-o", o, "--device", "cuda",
+                            "--mesh", "pod-2d"],
+                        env={"DEACON_POD_SHARDS": "2"})
+    same_bytes(o, ref["single"][0], "--mesh pod-2d")
+    record("pod-2d 4 ranks single", reports, bp["single"],
+           blocks=block_of(2))
+    o = os.path.join(tmp, "pod_build.idx")
+    reports = pod_ranks(2, ["index", "build", fa, "-o", o, "-q", "--device",
+                            "cuda", "--mesh", "pod-data"], coord=False)
+    same_bytes(o, read_bytes(ref_idx), "index build --mesh pod-data")
+    record("index build pod-data 2 ranks", reports, bp["fasta"],
+           filter_ranks=False)
+    if any(x["launches"]["K1"] <= 0 for x in reports):
+        raise AssertionError(f"phase 18 build: {reports}")
+
+    http = _free_port()
+    url = f"http://127.0.0.1:{http}"
+    client = {}
+
+    def serve_and_ask():
+        wait_http(url)
+        o = os.path.join(tmp, "pod_client.fq")
+        client["s"], _ = cli_timed(["client", url, fq, "-o", o, "-q"])
+        same_bytes(o, ref["single"][0], "client of server --mesh pod")
+
+    reports = pod_ranks(2, ["server", idx, "-p", http, "--host", "127.0.0.1",
+                            "--device", "cuda", "--mesh", "pod"],
+                        during=serve_and_ask)
+    record("server pod 2 ranks", reports, 0, filter_ranks=False)
+    runs["server pod 2 ranks"]["client_mbp_per_s"] = round(
+        bp["single"] / 1e6 / client["s"], 3)
+    t = time.perf_counter()
+    httpd = make_server(idx, 0, host="127.0.0.1", device="cuda",
+                        mesh=mk_mesh(1, 2, ["cuda:0"] * 2))
+    start_s = time.perf_counter() - t
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        o = os.path.join(tmp, "mesh_client.fq")
+        wall, _ = cli_timed(["client",
+                             f"http://127.0.0.1:{httpd.server_address[1]}",
+                             r1, r2, "-o", o, "-O", o + ".2", "-q"])
+        same_bytes(o, ref["paired"][0], "client of a 1x2 mesh server")
+        same_bytes(o + ".2", ref["paired"][1],
+                   "client of a 1x2 mesh server -O")
+        runs["server mesh 1x2 on cuda:0"] = {
+            "start_s": round(start_s, 3),
+            **{n: round(v, 3) for n, v in httpd.state.timings.items()},
+            "resident_gb": round(httpd.state.probe.nbytes / 1e9, 3),
+            "client_mbp_per_s": round(bp["paired"] / 1e6 / wall, 3)}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    del httpd
+    torch.cuda.empty_cache()
+    numbers = {"mbp": {n: v / 1e6 for n, v in bp.items()}, "p": p,
+               "runs": runs}
+    log("18 multi-process modes on the card", t0,
+        **{n: json.dumps(v) for n, v in numbers.items()})
+    return numbers
+
+
+def pods_on_cards(rng) -> dict:
+    """``python3 chip_smoke.py --pod4`` on a machine with four cards: the
+    pod modes with each rank on a card of its own (CUDA_VISIBLE_DEVICES
+    set to the rank), where the backend rule picks nccl, against the
+    one-process ``filter`` on card 0: phase 4's keys written to an index
+    file, phase 4's single and ONT-like reads as FASTQ; four ranks each
+    of ``filter --mesh pod``, ``--mesh pod-2d`` (DEACON_POD_SHARDS=2: two
+    groups of two), ``--mesh pod-data`` and ``server --mesh pod`` answered
+    by ``client``. Every output byte-identical to the one-process run,
+    K1 and K2 launched in every filter rank, K2 on exactly each pod rank's
+    block, nccl chosen in every pod rank."""
+    from deacon_tpu_torch.ops.radix_probe import choose_p
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"--pod4 needs four cards, this machine has "
+                             f"{cards}")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="deacon_torch_smoke_pod4_")
+    try:
+        genome, _, keys_u, _ = panhuman_keys(rng, K_, "4")
+        n_keys = int(keys_u.numel())
+        idx = os.path.join(tmp, "panhuman.idx")
+        dtt.write_index(keys_u.cpu().numpy().view(np.uint64),
+                        dtt.IndexHeader.new(K_, W_), idx)
+        del keys_u
+        torch.cuda.empty_cache()
+        single, _, ont = make_reads(rng, genome)
+        fq = os.path.join(tmp, "s.fq")
+        write_fastq(fq, [(b"s%d" % i, r) for i, r in enumerate(single + ont)])
+        n_bp = sum(len(r) for r in single + ont)
+        o = os.path.join(tmp, "ref.fq")
+        wall, _ = cli_timed(["filter", idx, fq, "-o", o, "--device", "cuda"])
+        ref = read_bytes(o)
+        runs = {"one-process filter": {"s": round(wall, 3), "mbp_per_s":
+                                       round(n_bp / 1e6 / wall, 3)}}
+        p = choose_p(n_keys)
+
+        def card(r):
+            return {"CUDA_VISIBLE_DEVICES": str(r)}
+
+        outs = [os.path.join(tmp, f"pod{r}.fq") for r in range(4)]
+        reports = pod_ranks(4, lambda r: ["filter", idx, fq, "-o", outs[r],
+                                          "--device", "cuda", "--mesh",
+                                          "pod"], env=card)
+        for o in outs:
+            same_bytes(o, ref, "--mesh pod on four cards")
+        runs["pod 4 ranks"] = pod_record(
+            "pod 4 ranks", reports, n_bp, backend="nccl",
+            blocks=lambda r: pod_block(r, 4, p))
+        o = os.path.join(tmp, "p2d.fq")
+        reports = pod_ranks(4, ["filter", idx, fq, "-o", o, "--device",
+                                "cuda", "--mesh", "pod-2d"],
+                            env=lambda r: {**card(r),
+                                           "DEACON_POD_SHARDS": "2"})
+        same_bytes(o, ref, "--mesh pod-2d on four cards")
+        runs["pod-2d 4 ranks"] = pod_record(
+            "pod-2d 4 ranks", reports, n_bp, backend="nccl",
+            blocks=lambda r: pod_block(r % 2, 2, p))
+        o = os.path.join(tmp, "pd.fq")
+        reports = pod_ranks(4, ["filter", idx, fq, "-o", o, "--device",
+                                "cuda", "--mesh", "pod-data"], env=card,
+                            coord=False)
+        same_bytes(o, ref, "--mesh pod-data on four cards")
+        runs["pod-data 4 ranks"] = pod_record("pod-data 4 ranks", reports,
+                                              n_bp)
+        url = f"http://127.0.0.1:{_free_port()}"
+        client = {}
+
+        def serve_and_ask():
+            wait_http(url)
+            o = os.path.join(tmp, "client.fq")
+            client["s"], _ = cli_timed(["client", url, fq, "-o", o, "-q"])
+            same_bytes(o, ref, "client of server --mesh pod on four cards")
+
+        reports = pod_ranks(4, ["server", idx, "-p", url.rsplit(":", 1)[1],
+                                "--host", "127.0.0.1", "--device", "cuda",
+                                "--mesh", "pod"], env=card,
+                            during=serve_and_ask)
+        runs["server pod 4 ranks"] = {
+            **pod_record("server pod 4 ranks", reports, 0,
+                         filter_ranks=False),
+            "client_mbp_per_s": round(n_bp / 1e6 / client["s"], 3),
+            "backends": [x["backend"] for x in reports]}
+        if runs["server pod 4 ranks"]["backends"] != ["nccl"] * 4:
+            raise AssertionError(f"server pod on four cards: "
+                                 f"{runs['server pod 4 ranks']['backends']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("pod4 the pod modes on four cards", t0, mbp=n_bp / 1e6,
+        runs=json.dumps(runs))
+    return runs
+
+
+def wait_http(url: str) -> None:
+    """Return once ``url`` answers; raise after POD_RUN_LIMIT_S."""
+    deadline = time.perf_counter() + POD_RUN_LIMIT_S
+    while True:
+        try:
+            http_get(url + "/")
+            return
+        except OSError:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"{url} never answered") from None
+            time.sleep(0.5)
 
 
 def sorted_unique(x: np.ndarray) -> np.ndarray:
@@ -2585,6 +3054,9 @@ def main() -> int:
         log(f"{route} route alone", t0, tiles=json.dumps(out["tiles"]))
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--pod4"]:
+        print(json.dumps(pods_on_cards(rng)), flush=True)
+        return 0
     if sys.argv[1:] == ["--k1"]:
         t0 = time.perf_counter()
         k1 = k1_tiles(rng)
@@ -2610,12 +3082,16 @@ def main() -> int:
     phase8_index_scale(rng)
     k1, k2, k2s = p2["k1"], p4["k2"], p4["k2_sharded"]
     p15, p16 = p4["windows"]["15"], p4["windows"]["16"]
+    p18 = p4["windows"]["18"]["runs"]
+    pod_k2 = [x["launches"]["K2"] for x in p18["pod 2 ranks single"]["ranks"]]
     kernels = [
         {"name": "K1 select_compact", "route": "cuda",
          "source": "deacon_tpu_torch/csrc/extract.cu",
          "replaces": "deacon_tpu/ops/pallas_kernels.py:736",
          "launches": p4["launches"]["K1"],
          "index_diff_launches": p16["panhuman_k31"]["launches"]["K1"],
+         "pod_launches": [x["launches"]["K1"] for x in
+                          p18["pod 2 ranks single"]["ranks"]],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
@@ -2677,6 +3153,9 @@ def main() -> int:
          "source": "deacon_tpu_torch/csrc/radix_probe.cu",
          "replaces": "deacon_tpu/ops/radix_probe.py:973",
          "launches": p4["windows"]["4d"]["timed_window_launches"]["K2"],
+         "pod_launches": pod_k2,
+         "pod_2d_launches": [x["launches"]["K2"] for x in
+                             p18["pod-2d 4 ranks single"]["ranks"]],
          "max_abs_err": max(k2s["S4"]["max_abs_err"],
                             k2s["S3"]["max_abs_err"]),
          "ms": k2s["S4"]["ms"], "plain_ms": k2s["S4"]["plain_ms"],
@@ -2696,10 +3175,13 @@ def main() -> int:
          "ratio_to_unsharded": k2s["S4"]["ratio_to_unsharded"]},
     ]
     if min(k["launches"] for k in kernels) <= 0 or min(
-            k.get("index_diff_launches", 1) for k in kernels) <= 0:
+            k.get("index_diff_launches", 1) for k in kernels) <= 0 or min(
+            min(k.get("pod_launches", [1])) for k in kernels) <= 0:
         raise AssertionError("a kernel of the main path was never launched")
     launches14 = {n: v for n, v in p14.items() if n.endswith("launches")}
     launches16 = {n: v["launches"] for n, v in p16.items() if "launches" in v}
+    launches18 = {n: [x["launches"] for x in v["ranks"]]
+                  for n, v in p18.items() if "ranks" in v}
     print(f"[total] {time.perf_counter() - t_all:.3f} s "
           f"phase3_launches={json.dumps(launches3)} "
           f"phase6_launches={json.dumps(launches6)} "
@@ -2707,6 +3189,7 @@ def main() -> int:
           f"phase14_launches={json.dumps(launches14)} "
           f"phase15_launches={json.dumps(p15['launches'])} "
           f"phase16_launches={json.dumps(launches16)} "
+          f"phase18_launches={json.dumps(launches18)} "
           f"window_7b_launches="
           f"{json.dumps(p7['windows']['7b']['timed_window_launches'])}",
           flush=True)

@@ -2,8 +2,11 @@
 ``filter``, ``server`` and ``client``, with the flags of the JAX
 package's (ref: src/main.rs:9-234), ``--device cuda|cpu`` (default cuda)
 for ``index build``, ``index diff``, ``filter`` and ``server``, and
-``--mesh DATAxSHARD`` for ``filter``. The JAX server's ``--device
-jax|host`` is ``cuda|cpu`` here."""
+``--mesh``: ``DATAxSHARD|pod|pod-data|pod-2d`` for ``filter``,
+``pod-data`` for ``index build``, ``DATAxSHARD|pod`` for ``server``
+(the multi-process modes read the JAX package's DEACON_* environment;
+parallel/multihost.py). The JAX server's ``--device jax|host`` is
+``cuda|cpu`` here."""
 
 from __future__ import annotations
 
@@ -115,6 +118,12 @@ def build_parser() -> argparse.ArgumentParser:
                          help="minimum scaled entropy threshold (0.0-1.0)")
     p_build.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                          help="compute device (default cuda; never falls back)")
+    p_build.add_argument("--mesh", default=None, choices=["pod-data"],
+                         help="'pod-data': each rank (DEACON_NUM_PROC/"
+                              "DEACON_PROC_ID) indexes its own record-"
+                              "aligned byte range of the input and rank 0 "
+                              "merges the partial indexes; aggregate build "
+                              "throughput scales with the ranks")
     p_info = isub.add_parser("info", help="show index information")
     p_info.add_argument("index", help="path to index file")
 
@@ -143,11 +152,22 @@ def build_parser() -> argparse.ArgumentParser:
     _add_filter_like_args(p)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="compute device (default cuda; never falls back)")
-    p.add_argument("--mesh", default=None, metavar="DATAxSHARD",
+    p.add_argument("--mesh", default=None,
+                   metavar="DATAxSHARD|pod|pod-data|pod-2d",
                    help="device mesh, e.g. 2x4: read batches data-parallel "
                         "over DATA rows, the index range-sharded over SHARD "
                         "devices; needs DATA*SHARD distinct cards on cuda, "
-                        "repeats the CPU on cpu")
+                        "repeats the CPU on cpu. 'pod': torch.distributed "
+                        "multi-process mode (DEACON_COORD/DEACON_NUM_PROC/"
+                        "DEACON_PROC_ID env): every rank holds only its "
+                        "block of the index and must be fed the same "
+                        "input. 'pod-data': each rank filters its own byte "
+                        "range of the input(s) on its own cards; aggregate "
+                        "reads/s scales with the ranks (plain or BGZF "
+                        "single-end, or plain paired file inputs). "
+                        "'pod-2d': both at once: rank groups of "
+                        "DEACON_POD_SHARDS ranks each own a byte range "
+                        "while the index is cut across the group's ranks")
 
     p_server = sub.add_parser(
         "server", help="serve a pre-loaded minimizer index over HTTP")
@@ -158,8 +178,14 @@ def build_parser() -> argparse.ArgumentParser:
                           help="device holding the index's keys for the "
                                "membership probes (default cuda; never "
                                "falls back)")
-    p_server.add_argument("--mesh", default=None, metavar="DATAxSHARD",
-                          help="not ported yet: exits 1")
+    p_server.add_argument("--mesh", default=None, metavar="DATAxSHARD|pod",
+                          help="shard the index's keys across a device "
+                               "mesh (e.g. 1x4; distinct cards on cuda, "
+                               "the CPU repeated on cpu), or 'pod': across "
+                               "the ranks of a torch.distributed process "
+                               "group (DEACON_COORD/DEACON_NUM_PROC/"
+                               "DEACON_PROC_ID; rank 0 serves HTTP, the "
+                               "other ranks take part in its probes)")
 
     p_client = sub.add_parser(
         "client",
@@ -224,6 +250,10 @@ def main(argv: list[str] | None = None) -> int:
     except (ValueError, OSError, RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    finally:
+        from .parallel.multihost import leave_distributed
+
+        leave_distributed()
     return 0
 
 
@@ -256,6 +286,7 @@ def _run_index(args) -> None:
         quiet=args.quiet,
         entropy_threshold=args.entropy_threshold,
         device=args.device,
+        mesh=args.mesh,
     ).execute()
 
 

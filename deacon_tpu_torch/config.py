@@ -42,7 +42,8 @@ class FilterConfig:
     batch_size: int = FILTER_BATCH
     #: device mesh "DATAxSHARD" (e.g. "2x4"): read batches data-parallel
     #: over DATA rows, the index's radix table cut over SHARD devices
-    #: (filter.engine.filter_mesh)
+    #: (filter.engine.filter_mesh); or a multi-process mode, "pod",
+    #: "pod-data" or "pod-2d" (parallel/multihost.py)
     mesh: str | None = None
 
     def execute(self) -> None:
@@ -66,6 +67,9 @@ class IndexConfig:
     entropy_threshold: float = 0.0
     #: "cuda" (the default) or "cpu"; see device.resolve_device
     device: str = "cuda"
+    #: "pod-data": every rank (DEACON_NUM_PROC, DEACON_PROC_ID) indexes its
+    #: own byte range and rank 0 merges the parts (index/pod_build.py)
+    mesh: str | None = None
 
     def execute(self) -> None:
         from .index.build import build

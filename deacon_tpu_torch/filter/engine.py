@@ -11,6 +11,13 @@ gathered into the output in order by the host library. Up to
 writes behind; each holds its own copy of its reads. In client mode
 (``server_address``) the host extracts each batch's minimizers and a
 server decides (RemoteDecider).
+
+The multi-process modes (parallel/multihost.py) enter here too:
+``--mesh pod`` runs this loop in every rank on the same input over a
+PodPipeline; ``--mesh pod-data`` and ``pod-2d`` split the input into
+byte ranges first (filter/pod_data.py), and each rank (or rank group)
+runs this loop over its range (``_byte_range``) and hands its stats back
+(``_return_stats``). In the pod modes no process loads the whole index.
 """
 
 from __future__ import annotations
@@ -25,7 +32,13 @@ import torch
 
 from ..config import FilterConfig
 from ..constants import TOOL_NAME, VERSION
-from ..index.store import load_index, warn_if_foreign_index
+from ..index.store import (
+    IndexHeader,
+    MinimizerIndex,
+    load_header_and_count,
+    load_index,
+    warn_if_foreign_index,
+)
 from ..io.fastx import FastxReader, RecordBatch
 from ..io.writers import FastxWriter, format_batch, get_writer
 from ..ops import host_extract
@@ -184,29 +197,63 @@ class ShardedDecider(DeviceDecider):
         self.pipe = ShardedPipeline(index_hashes, k, w, mesh)
         self.resolve_depth = ShardedPipeline.RESOLVE_DEPTH
 
+    @classmethod
+    def from_pipeline(cls, pipe: ShardedPipeline) -> "ShardedDecider":
+        """The decider of a pipeline built elsewhere (from the index file,
+        or a PodPipeline)."""
+        self = cls.__new__(cls)
+        self.pipe = pipe
+        self.resolve_depth = ShardedPipeline.RESOLVE_DEPTH
+        return self
+
+
+#: the --mesh values of the multi-process modes (parallel/multihost.py)
+POD_MESHES = ("pod", "pod-data", "pod-2d")
+
 
 def filter_mesh(mesh_spec: str, device: str):
     """The mesh of ``--mesh DATAxSHARD``: distinct cards on cuda (raises
     "need N devices, have M" when there are too few), the CPU repeated on
-    cpu. The multi-host specs are not ported."""
-    if mesh_spec in ("pod", "pod-data", "pod-2d"):
-        raise ValueError(f"--mesh {mesh_spec} (multi-host) is not ported yet")
+    cpu."""
     n_data, n_shard = parse_mesh_spec(mesh_spec)
     if torch.device(device).type == "cpu":
         return make_mesh(n_data, n_shard, ["cpu"] * (n_data * n_shard))
     return make_mesh(n_data, n_shard)
 
 
+def _pod_pipeline(cfg: FilterConfig, k: int, w: int) -> ShardedPipeline:
+    """The pipeline of a multi-process mode, its blocks built from the
+    index file: a PodPipeline over the world (pod) or this rank's group
+    (pod-2d), or a rank-local mesh (pod-data with DEACON_POD_ENGINE=
+    sharded or DEACON_POD_LOCAL_MESH)."""
+    from ..parallel import multihost
+
+    make = {"pod": multihost.make_pod_pipeline_from_file,
+            "pod-2d": multihost.make_pod2d_pipeline_from_file,
+            "pod-data": multihost.make_local_pipeline_from_file}[cfg.mesh]
+    return make(str(cfg.minimizers_path), k, w, cfg.device)
+
+
 def make_decider(index, backend, k: int, w: int, cfg: FilterConfig):
     """The device pipeline on cfg.device, over cfg.mesh when it is set;
     the host decider for --debug (its per-record k-mer dump needs host
-    extraction; a mesh is still checked). In client mode (no index) the
-    RemoteDecider: host extraction, decisions on the server."""
-    if index is None:
+    extraction; a mesh is still checked, and in the multi-process modes,
+    where no host holds the index, it probes the pipeline's blocks:
+    ShardedPipeline.probe_hashes). In client mode the RemoteDecider:
+    host extraction, decisions on the server."""
+    if cfg.minimizers_path is None:
         if cfg.mesh:
             print("Warning: --mesh is ignored in client mode (decisions run "
                   "on the server).", file=sys.stderr)
         return RemoteDecider(backend, k, w)
+    if cfg.mesh in POD_MESHES:
+        pipe = _pod_pipeline(cfg, k, w)
+        if cfg.debug:
+            stub = MinimizerIndex(IndexHeader.new(k, w),
+                                  np.empty(0, dtype=np.uint64))
+            return HostDecider(LocalBackend(stub, probe=pipe.probe_hashes),
+                               k, w)
+        return ShardedDecider.from_pipeline(pipe)
     mesh = filter_mesh(cfg.mesh, cfg.device) if cfg.mesh else None
     if cfg.debug:
         return HostDecider(backend, k, w)
@@ -217,9 +264,12 @@ def make_decider(index, backend, k: int, w: int, cfg: FilterConfig):
 
 def _engine_desc(decider) -> str:
     if isinstance(decider, ShardedDecider):
-        shape = decider.pipe.mesh.shape
-        return (f"sharded device pipeline (mesh data={shape['data']} x "
-                f"shard={shape['shard']})")
+        mesh = decider.pipe.mesh
+        shape = mesh.shape
+        desc = (f"sharded device pipeline (mesh data={shape['data']} x "
+                f"shard={shape['shard']}")
+        backend = getattr(mesh, "backend", None)
+        return desc + (f"; collectives over {backend})" if backend else ")")
     if isinstance(decider, DeviceDecider):
         return f"device pipeline ({decider.pipe.device})"
     if isinstance(decider, RemoteDecider):
@@ -227,7 +277,19 @@ def _engine_desc(decider) -> str:
     return "host batch engine (host library extraction)"
 
 
-def run(config: FilterConfig):
+def run(config: FilterConfig, _byte_range=None, _return_stats=False):
+    """``filter``. ``_byte_range`` (a range of io/split.py, or a pair of
+    them for paired files) reads only that range of the input, and
+    ``_return_stats`` returns (stats, k, w) instead of printing the final
+    line and summary: filter/pod_data.py's per-rank runs."""
+    if config.mesh == "pod-data" and _byte_range is None:
+        from .pod_data import run_pod_data
+
+        return run_pod_data(config)
+    if config.mesh == "pod-2d" and _byte_range is None:
+        from .pod_data import run_pod_2d
+
+        return run_pod_2d(config)
     start_time = time.monotonic()
     tool_version = f"{TOOL_NAME} {VERSION}"
     quiet = config.quiet or config.debug  # ref: src/local_filter.rs:581
@@ -257,9 +319,14 @@ def run(config: FilterConfig):
 
     if config.minimizers_path is not None:
         warn_if_foreign_index(config.minimizers_path)
-        index = load_index(config.minimizers_path)
-        header = index.header
-        backend = LocalBackend(index)
+        if config.mesh in POD_MESHES:
+            # each process builds its blocks from its rows' keys alone
+            header, _ = load_header_and_count(config.minimizers_path)
+            index = backend = None
+        else:
+            index = load_index(config.minimizers_path)
+            header = index.header
+            backend = LocalBackend(index)
         summary_index = str(config.minimizers_path)
     elif config.server_address is not None:
         index = None
@@ -326,7 +393,7 @@ def run(config: FilterConfig):
         depth = max(1, int(decider.resolve_depth))
         pending: deque = deque()
         pending_bytes = 0
-        batches = _read_batches(config, input_type)
+        batches = _read_batches(config, input_type, _byte_range)
         while True:
             batch = next(batches, None)
             if batch is not None:
@@ -351,6 +418,8 @@ def run(config: FilterConfig):
     writer.finish()
     if writer2 is not None:
         writer2.finish()
+    if _return_stats:
+        return stats, k, w
     _finish_run(config, stats, start_time, quiet, tool_version,
                 summary_index, k, w)
 
@@ -403,14 +472,27 @@ def _finish_run(
             _eprint(f'Summary saved to "{config.summary_path}"')
 
 
-def _read_batches(config: FilterConfig, input_type: str):
-    """The input as RecordBatches of ``config.batch_size`` read units, a
-    pair's two records adjacent. Paired files stop at the shorter one; an
+def _split_byte_range(br):
+    """(range of input 1, range of input 2) of a pod-data range: ``(s,
+    e)`` or a BgzfRange for single input, ``((s1, e1), (s2, e2))`` for
+    paired files; (None, None) for the whole input."""
+    if br is None:
+        return None, None
+    if isinstance(br[0], tuple):
+        return br[0], br[1]
+    return br, None
+
+
+def _read_batches(config: FilterConfig, input_type: str, byte_range=None):
+    """The input (or its ``byte_range``, see _split_byte_range) as
+    RecordBatches of ``config.batch_size`` read units, a pair's two
+    records adjacent. Paired files stop at the shorter one; an
     interleaved stream with an odd record count is an error
     (ref: src/remote_filter.rs:1188-1194)."""
     size = config.batch_size
+    br1, br2 = _split_byte_range(byte_range)
     if input_type == "single":
-        reader = FastxReader.from_path(config.input_path)
+        reader = FastxReader.from_path(config.input_path, byte_range=br1)
         while len(batch := reader.read_batch(size)):
             yield batch
     elif input_type == "interleaved":
@@ -424,8 +506,8 @@ def _read_batches(config: FilterConfig, input_type: str):
                     f"Found {count} records.")
             yield batch
     else:
-        r1 = FastxReader.from_path(config.input_path)
-        r2 = FastxReader.from_path(config.input2_path)
+        r1 = FastxReader.from_path(config.input_path, byte_range=br1)
+        r2 = FastxReader.from_path(config.input2_path, byte_range=br2)
         while len(b1 := r1.read_batch(size)):
             b2 = r2.read_batch(len(b1))
             n = len(b2)

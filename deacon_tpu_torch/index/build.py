@@ -38,16 +38,30 @@ def _eprint(*args) -> None:
     print(*args, file=sys.stderr)
 
 
-def build(config: IndexConfig) -> None:
-    """ref: src/index.rs:167-308."""
+def build(config: IndexConfig, _byte_range=None, _return_stats=False):
+    """ref: src/index.rs:167-308.
+
+    ``_byte_range`` and ``_return_stats`` serve ``index build --mesh
+    pod-data`` (index/pod_build.py): build from one record-aligned byte
+    range of the input (io/split.py) and return (distinct keys, sequences,
+    bases) without the banner and the summary lines."""
+    if config.mesh is not None and config.mesh != "pod-data":
+        raise ValueError(
+            f"index build supports --mesh pod-data only, got {config.mesh!r}"
+        )
+    if config.mesh == "pod-data" and _byte_range is None:
+        from .pod_build import run_pod_build
+
+        return run_pod_build(config)
     start = time.monotonic()
-    options = [f"capacity={config.capacity_millions}M"]
-    if config.threads > 0:
-        options.append(f"threads={config.threads}")
-    _eprint(
-        f"{TOOL_NAME} v{VERSION}; mode: build; input: single; "
-        f"options: {', '.join(options)}"
-    )
+    if not _return_stats:
+        options = [f"capacity={config.capacity_millions}M"]
+        if config.threads > 0:
+            options.append(f"threads={config.threads}")
+        _eprint(
+            f"{TOOL_NAME} v{VERSION}; mode: build; input: single; "
+            f"options: {', '.join(options)}"
+        )
     k, w = config.kmer_length, config.window_size
     # l = k + w - 1 must be odd (canonical tie-break; ref: src/index.rs:186-194)
     if (k + w - 1) % 2 == 0:
@@ -56,9 +70,10 @@ def build(config: IndexConfig) -> None:
         )
     pipe = IndexBuildPipeline(k, w, config.entropy_threshold,
                               device=config.device)
-    reader = FastxReader.from_path(config.input_path)
-    _eprint(f"Building index (k={k}, w={w})")
-    _eprint(f"Engine: device extraction pipeline ({pipe.device})")
+    reader = FastxReader.from_path(config.input_path, byte_range=_byte_range)
+    if not _return_stats:
+        _eprint(f"Building index (k={k}, w={w})")
+        _eprint(f"Engine: device extraction pipeline ({pipe.device})")
     distinct = DistinctHashes(pipe.device)
     seq_count = total_bp = 0
     while len(batch := reader.read_batch(INDEX_BUILD_BATCH)):
@@ -72,6 +87,10 @@ def build(config: IndexConfig) -> None:
                 _eprint(f"  {_rid(batch, i)} ({int(batch.seq_lens[i])}bp), "
                         f"total minimizers: {total}")
     keys = distinct.sorted_u64()
+    if _return_stats:
+        store.write_index(keys, store.IndexHeader.new(k, w),
+                          config.output_path)
+        return keys.size, seq_count, total_bp
     _eprint(
         f"Indexed {keys.size} minimizers from {seq_count} sequence(s) "
         f"({total_bp}bp)"

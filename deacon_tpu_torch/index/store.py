@@ -181,6 +181,69 @@ def load_index(path: str | Path) -> MinimizerIndex:
     return MinimizerIndex(header, _sorted_unique(hashes))  # set semantics
 
 
+def shard_value_range(shard_i: int, n_shards: int) -> tuple[int, int]:
+    """Half-open u64 value range [lo, hi) owned by shard ``shard_i`` of
+    ``n_shards``: [i * 2**64 // N, (i + 1) * 2**64 // N)."""
+    if not 0 <= shard_i < n_shards:
+        raise ValueError(f"shard {shard_i} out of range for {n_shards} shards")
+    return ((shard_i * (1 << 64)) // n_shards,
+            ((shard_i + 1) * (1 << 64)) // n_shards)
+
+
+def load_index_range(path: str | Path, lo: int, hi: int, *,
+                     chunk: int = 8_000_000) -> tuple[IndexHeader, np.ndarray,
+                                                      int]:
+    """The index file's distinct keys in the u64 value range [lo, hi),
+    sorted: the file is mapped and decoded by the host library in pieces
+    of ``chunk`` keys, keeping only the keys in range, so the peak host
+    memory is the kept keys plus one piece. Works on unsorted files with
+    duplicates (the reference writes those). Returns (header, keys, the
+    file's key count)."""
+    if not 0 <= lo <= hi <= 1 << 64:
+        raise ValueError(f"bad u64 value range [{lo}, {hi})")
+    buf = np.memmap(path, dtype=np.uint8, mode="r")
+    header, pos = _read_header(buf, 0)
+    count, pos = bincode.decode_uint(memoryview(buf[:32].tobytes()), pos)
+    kept: list[np.ndarray] = []
+    lo64, top64 = np.uint64(lo), np.uint64(max(hi, 1) - 1)
+    remaining = count
+    ascending, last = True, None  # every piece so far strictly ascending
+    while remaining and lo < hi:
+        n = min(chunk, remaining)
+        vals, pos = decode_u64_varint(buf, pos, n)
+        remaining -= n
+        if u64_sorted_unique(vals):
+            # a sorted piece (every piece of a file this tool writes): the
+            # range is one slice of it
+            a = int(np.searchsorted(vals, lo64))
+            sel = vals[a:int(np.searchsorted(vals, top64, side="right"))]
+            ascending &= last is None or vals[0] > last
+            last = vals[-1]
+        else:
+            sel = vals[(vals >= lo64) & (vals <= top64)]
+            ascending = False
+        if sel.size:
+            kept.append(sel)
+    del buf
+    if not kept:
+        return header, np.empty(0, np.uint64), count
+    merged = np.concatenate(kept) if len(kept) > 1 else kept[0]
+    kept.clear()
+    if ascending or merged.size < 2 or u64_sorted_unique(merged):
+        return header, merged, count
+    out = u64_sort_unique(merged)  # merged is ours: sorted in place
+    return header, out.copy() if out.size < merged.size // 2 else out, count
+
+
+def load_index_shard(path: str | Path, shard_i: int, n_shards: int, *,
+                     chunk: int = 8_000_000):
+    """Value-range shard ``shard_i`` of ``n_shards`` of an index file
+    (shard_value_range; load_index_range decodes it). Returns (header,
+    sorted distinct keys of the shard, the file's key count)."""
+    lo, hi = shard_value_range(shard_i, n_shards)
+    return load_index_range(path, lo, hi, chunk=chunk)
+
+
 def _sorted_unique(hashes: np.ndarray) -> np.ndarray:
     """Sorted unique keys, the sort skipped when the array is already
     strictly increasing (files this framework writes are)."""

@@ -174,11 +174,13 @@ class FastxReader:
         self._is_fastq: bool | None = None
 
     @classmethod
-    def from_path(cls, path: str | os.PathLike | None):
-        """The host library's reader over ``path`` (None or "-": stdin)."""
+    def from_path(cls, path: str | os.PathLike | None, byte_range=None):
+        """The host library's reader over ``path`` (None or "-": stdin),
+        or over one range of it (io/split.py's ranges; see
+        NativeFastxReader)."""
         from .native_loader import NativeFastxReader
 
-        return NativeFastxReader(path)
+        return NativeFastxReader(path, byte_range=byte_range)
 
     def _readline(self) -> bytes:
         if self._pending is not None:

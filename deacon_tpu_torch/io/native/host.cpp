@@ -1,6 +1,8 @@
 // Host I/O library of deacon_tpu_torch: streaming FASTA/FASTQ reading
-// (plain, gzip and BGZF, zstd, xz, bzip2; from a file or stdin) into
-// reader-owned batch arenas, compressed output writing, 2-bit packing of
+// (plain, gzip and BGZF, zstd, xz, bzip2; from a file or stdin, or one
+// byte range of a plain or BGZF file) into reader-owned batch arenas, the
+// record scans that split a file into ranges, compressed output writing,
+// 2-bit packing of
 // row slices into the device tile layout, the index file's varint codec
 // and writer, sorted-set merges of u64 keys, and batched host minimizer
 // extraction. Loaded through ctypes (deacon_tpu_torch/io/native_loader.py),
@@ -1583,8 +1585,28 @@ struct Source {
     return (int64_t)out;
   }
 
-  // Returns decompressed bytes read into dst (0 = EOF, -1 = error).
+  // Decoded-space window of a range reader (dx_open_range): bytes to drop
+  // before the first delivered byte, then bytes left to deliver (-1 = to
+  // the end of the stream).
+  int64_t dec_skip = 0, dec_left = -1;
+
+  // Returns decoded bytes read into dst within the window (0 = end,
+  // -1 = error).
   int64_t read(uint8_t* dst, size_t n) {
+    while (dec_skip > 0) {
+      int64_t got = read_codec(dst, std::min(n, (size_t)dec_skip));
+      if (got <= 0) return got;
+      dec_skip -= got;
+    }
+    if (dec_left == 0) return 0;
+    if (dec_left > 0 && (int64_t)n > dec_left) n = (size_t)dec_left;
+    int64_t got = read_codec(dst, n);
+    if (got > 0 && dec_left > 0) dec_left -= got;
+    return got;
+  }
+
+  // Returns decompressed bytes read into dst (0 = EOF, -1 = error).
+  int64_t read_codec(uint8_t* dst, size_t n) {
     if (codec == Codec::kPlain) return read_direct(dst, n);
     if (codec == Codec::kGzip) {
       if (gz_mode == 0) probe_gz();
@@ -1593,7 +1615,7 @@ struct Source {
         if (got < 0 || (size_t)got == n || gz_mode == 1 || gz_mode == 3)
           return got;
         // non-BGZF member mid-stream: serial path finishes this request
-        int64_t rest = read(dst + (size_t)got, n - (size_t)got);
+        int64_t rest = read_codec(dst + (size_t)got, n - (size_t)got);
         return rest < 0 ? -1 : got + rest;
       }
       if (gz_mode == 3) return 0;
@@ -1914,6 +1936,66 @@ DxReader* dx_open(const char* path, const char* zstd_lib) {
   r->buf.resize(kBufSize);
   r->src.init(f, codec, magic, got,
               codec == Codec::kZstd ? ZstdApi::get(zstd_lib) : nullptr);
+  return r;
+}
+
+// Opens a range of a plain or BGZF FASTX file: seek to raw offset
+// `offset` (a record start of a plain file, or a block start of a BGZF
+// file), drop `skip` decoded bytes (the partial record at a BGZF block's
+// head, owned by the range before), then deliver `len` decoded bytes
+// (-1 = to the end). The ranges come from io/split.py. Serial codecs have
+// no mid-stream entry, so any other compression fails to open. nullptr on
+// failure, with the reason in dx_open_error().
+DxReader* dx_open_range(const char* path, int64_t offset, int64_t skip,
+                        int64_t len) {
+  if (!path || strcmp(path, "-") == 0 || offset < 0 || skip < 0 ||
+      len < -1) {
+    g_open_error = "a range needs a file path, offset >= 0, skip >= 0 and "
+                   "len >= -1";
+    return nullptr;
+  }
+  FILE* f = fopen(path, "rb");
+  if (!f) {
+    g_open_error = strerror(errno);
+    return nullptr;
+  }
+  uint8_t magic[6] = {0};
+  size_t got = fread(magic, 1, sizeof(magic), f);
+  Codec codec = Codec::kPlain;
+  if (got >= 2 && magic[0] == 0x1f && magic[1] == 0x8b) {
+    codec = Codec::kGzip;
+  } else if ((got >= 4 && magic[0] == 0x28 && magic[1] == 0xb5 &&
+              magic[2] == 0x2f && magic[3] == 0xfd) ||
+             (got >= 6 && magic[0] == 0xfd &&
+              memcmp(magic + 1, "7zXZ", 4) == 0) ||
+             (got >= 4 && memcmp(magic, "BZh", 3) == 0)) {
+    g_open_error = "only plain and BGZF files can be read by range";
+    fclose(f);
+    return nullptr;
+  }
+  if (fseek(f, (long)offset, SEEK_SET) != 0) {
+    g_open_error = strerror(errno);
+    fclose(f);
+    return nullptr;
+  }
+  if (codec == Codec::kGzip && len != 0) {
+    // the range must start at a BGZF block: the serial inflater cannot
+    // enter a stream in its middle
+    uint8_t hdr[18];
+    size_t n = fread(hdr, 1, sizeof(hdr), f);
+    size_t total = 0, hlen = 0;
+    if (n && bgzf_parse_header(hdr, n, &total, &hlen) != 1) {
+      g_open_error = "no BGZF block starts at the range's offset";
+      fclose(f);
+      return nullptr;
+    }
+    fseek(f, (long)offset, SEEK_SET);
+  }
+  auto* r = new DxReader();
+  r->buf.resize(kBufSize);
+  r->src.init(f, codec, nullptr, 0, nullptr);
+  r->src.dec_skip = skip;
+  r->src.dec_left = len;
   return r;
 }
 
@@ -3496,6 +3578,163 @@ int64_t dx_extract_batch(const uint8_t* arena, const int64_t* starts,
     }
   }
   return off;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Record scans of a plain FASTX file for io/split.py's paired split: the
+// record index at byte offsets, and the byte offset of record indices, by
+// one forward pass over the mapped file.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct MappedFile {
+  const uint8_t* p = nullptr;
+  int64_t size = 0;
+  int fd = -1;
+  bool ok = false;
+  explicit MappedFile(const char* path) {
+    fd = open(path, O_RDONLY);
+    if (fd < 0) return;
+    struct stat st;
+    if (fstat(fd, &st) != 0) return;
+    size = (int64_t)st.st_size;
+    if (size == 0) {
+      ok = true;  // nothing to map; scans see an empty file
+      return;
+    }
+    void* m = mmap(nullptr, (size_t)size, PROT_READ, MAP_PRIVATE, fd, 0);
+    if (m == MAP_FAILED) return;
+    madvise(m, (size_t)size, MADV_SEQUENTIAL);
+    p = (const uint8_t*)m;
+    ok = true;
+  }
+  ~MappedFile() {
+    if (p) munmap((void*)p, (size_t)size);
+    if (fd >= 0) close(fd);
+  }
+};
+
+// newlines in p[begin, end)
+int64_t count_nl(const uint8_t* p, int64_t begin, int64_t end) {
+  int64_t c = 0;
+  const uint8_t* q = p + begin;
+  const uint8_t* lim = p + end;
+  while (q < lim) {
+    const uint8_t* hit = (const uint8_t*)memchr(q, '\n', (size_t)(lim - q));
+    if (!hit) break;
+    ++c;
+    q = hit + 1;
+  }
+  return c;
+}
+
+// record starts ('>' at a line start) at indices in [begin, end), with a
+// virtual newline before index 0
+int64_t count_fasta_starts(const uint8_t* p, int64_t begin, int64_t end) {
+  int64_t c = 0;
+  if (begin == 0 && begin < end && p[0] == '>') ++c;
+  const uint8_t* q = p + (begin > 0 ? begin - 1 : begin);
+  const uint8_t* lim = p + end;
+  while (q + 1 < lim) {
+    const uint8_t* hit = (const uint8_t*)memchr(q, '\n', (size_t)(lim - q));
+    if (!hit || hit + 1 >= lim) break;
+    if (hit[1] == '>') ++c;
+    q = hit + 1;
+  }
+  return c;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Record index at each byte offset (offsets ascending, each a record start
+// or the file size). 0 = ok, -1 = the file cannot be opened or mapped,
+// -2 = an offset is not a FASTQ record boundary (records are 4 lines).
+int dx_records_at_offsets(const char* path, const int64_t* offsets,
+                          int64_t n, int is_fastq, int64_t* out) {
+  MappedFile mf(path);
+  if (!mf.ok) return -1;
+  int64_t pos = 0, count = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t off = offsets[i] > mf.size ? mf.size : offsets[i];
+    if (off < pos) return -1;  // not ascending
+    if (is_fastq) {
+      count += count_nl(mf.p, pos, off);
+      pos = off;
+      int64_t eff = count;
+      // EOF closes an unterminated final line (the readers' rule)
+      if (off == mf.size && mf.size > 0 && mf.p[mf.size - 1] != '\n') ++eff;
+      if (eff % 4) return -2;
+      out[i] = eff / 4;
+    } else {
+      count += count_fasta_starts(mf.p, pos, off);
+      pos = off;
+      out[i] = count;
+    }
+  }
+  return 0;
+}
+
+// Byte offset of the start of record r for each r (ascending), the file
+// size when the file has fewer records. 0 = ok, -1 = the file cannot be
+// opened or mapped.
+int dx_offsets_at_records(const char* path, const int64_t* records,
+                          int64_t n, int is_fastq, int64_t* out) {
+  MappedFile mf(path);
+  if (!mf.ok) return -1;
+  const uint8_t* lim = mf.p + mf.size;
+  int64_t pos = 0;    // scan cursor
+  int64_t found = 0;  // newlines (FASTQ) or record starts (FASTA) so far
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t r = records[i];
+    if (r == 0) {
+      out[i] = 0;
+      continue;
+    }
+    if (is_fastq) {
+      int64_t target = 4 * r;
+      while (found < target) {
+        const uint8_t* hit = (const uint8_t*)memchr(
+            mf.p + pos, '\n', (size_t)(mf.size - pos));
+        if (!hit) {
+          pos = mf.size;
+          break;
+        }
+        pos = (hit - mf.p) + 1;
+        ++found;
+      }
+      out[i] = found == target ? pos : mf.size;
+      continue;
+    }
+    int64_t target = r + 1;
+    int64_t start_off = -1;
+    if (found == 0 && pos == 0 && mf.size > 0 && mf.p[0] == '>') {
+      found = 1;
+      start_off = 0;
+      pos = 1;
+    }
+    while (found < target) {
+      int64_t from = pos > 0 ? pos - 1 : 0;
+      const uint8_t* hit =
+          (const uint8_t*)memchr(mf.p + from, '\n', (size_t)(mf.size - from));
+      while (hit && (hit + 1 >= lim || hit[1] != '>'))
+        hit = (const uint8_t*)memchr(hit + 1, '\n', (size_t)(lim - (hit + 1)));
+      if (!hit) {
+        pos = mf.size;
+        start_off = -1;
+        break;
+      }
+      ++found;
+      start_off = (hit + 1) - mf.p;
+      pos = start_off + 1;
+    }
+    out[i] = (found == target && start_off >= 0) ? start_off : mf.size;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -118,6 +118,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     sig = {
         "dx_open": (vp, [ctypes.c_char_p, ctypes.c_char_p]),
+        "dx_open_range": (vp, [ctypes.c_char_p, i64, i64, i64]),
+        "dx_records_at_offsets": (ctypes.c_int, [ctypes.c_char_p, vp, i64,
+                                                 ctypes.c_int, vp]),
+        "dx_offsets_at_records": (ctypes.c_int, [ctypes.c_char_p, vp, i64,
+                                                 ctypes.c_int, vp]),
         "dx_open_error": (ctypes.c_char_p, []),
         "dx_close": (None, [vp]),
         "dx_is_fastq": (ctypes.c_int, [vp]),
@@ -347,6 +352,36 @@ def u64_sort_unique(vals: np.ndarray) -> np.ndarray:
     return vals[:n]
 
 
+def records_at_offsets(path, offsets, is_fastq: bool) -> list[int]:
+    """The record index at each byte offset of a plain FASTX file (offsets
+    ascending, each a record start or the file size), by one scan. Raises
+    ValueError when an offset is not a FASTQ record boundary, OSError when
+    the file cannot be read."""
+    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    out = np.empty(offs.size, dtype=np.int64)
+    rc = library().dx_records_at_offsets(os.fsencode(path), _ptr(offs),
+                                         offs.size, int(is_fastq), _ptr(out))
+    if rc == -2:
+        raise ValueError("offset is not a FASTQ record boundary (records "
+                         "must be exactly 4 lines)")
+    if rc != 0:
+        raise OSError(f"cannot scan {path}")
+    return out.tolist()
+
+
+def offsets_at_records(path, records, is_fastq: bool) -> list[int]:
+    """The byte offset where each record index starts in a plain FASTX
+    file (ascending; the file size past its last record), by one scan.
+    Raises OSError when the file cannot be read."""
+    recs = np.ascontiguousarray(records, dtype=np.int64)
+    out = np.empty(recs.size, dtype=np.int64)
+    rc = library().dx_offsets_at_records(os.fsencode(path), _ptr(recs),
+                                         recs.size, int(is_fastq), _ptr(out))
+    if rc != 0:
+        raise OSError(f"cannot scan {path}")
+    return out.tolist()
+
+
 # ---------------------------------------------------------------------------
 # Reader and writer
 # ---------------------------------------------------------------------------
@@ -358,7 +393,10 @@ def _open_error(lib) -> str:
 class NativeFastxReader:
     """FASTA/FASTQ reader over the host library: plain, gzip and BGZF,
     zstd (through io/zstd.LIBRARY), xz and bzip2, from a path or stdin
-    (None or "-").
+    (None or "-"); or, with ``byte_range``, one range of a plain or BGZF
+    file: (start, end) raw bytes of a plain file, or io/split.BgzfRange
+    (comp_off, dskip, dlen): from the BGZF block at comp_off, dskip
+    decoded bytes dropped, then dlen delivered (-1: to the end).
 
     ``read_batch`` returns owned RecordBatches (the filter loop's form);
     ``read_batch_raw`` returns views of the reader's own buffers, which
@@ -366,11 +404,18 @@ class NativeFastxReader:
     One thread at a time may use a reader."""
 
     def __init__(self, path: str | os.PathLike | None,
-                 batch_mb: int = 64):
+                 batch_mb: int = 64, byte_range=None):
         self._h = None
         self._lib = library()
         p = b"-" if path is None or str(path) == "-" else os.fsencode(path)
-        self._h = self._lib.dx_open(p, zstd.LIBRARY.encode())
+        if byte_range is None:
+            self._h = self._lib.dx_open(p, zstd.LIBRARY.encode())
+        elif len(byte_range) == 3:  # a BgzfRange
+            self._h = self._lib.dx_open_range(p, *(int(x) for x in
+                                                   byte_range))
+        else:
+            start, end = (int(x) for x in byte_range)
+            self._h = self._lib.dx_open_range(p, start, 0, end - start)
         if not self._h:
             raise OSError(f"Failed to open {path!r}: {_open_error(self._lib)}")
         self._max_batch_bytes = max(1, batch_mb) << 20

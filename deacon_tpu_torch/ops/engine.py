@@ -48,6 +48,8 @@ extraction and clears the first index's keys it hits (KeptKeys).
 
 DeviceHashProbe holds an index's sorted keys on the device for the
 server: each request's pre-hashed minimizers are one searchsorted probe.
+ShardedHashProbe holds one value range of them on each shard of a mesh
+(``server --mesh DATAxSHARD``).
 """
 
 from __future__ import annotations
@@ -798,6 +800,49 @@ class DeviceHashProbe:
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
         return self.member(t ^ _I64_MIN).cpu().numpy()
+
+
+class ShardedHashProbe:
+    """DeviceHashProbe over a (data x shard) mesh (parallel/sharded.Mesh):
+    shard j holds the keys of value range j of the index file
+    (store.load_index_shard) on the devices of mesh column j, one copy
+    per device; a call cuts the queries into one contiguous part per data
+    row, probes each part against every shard on its row's devices, and
+    ORs the bits (the ranges are disjoint, so a key is in one shard at
+    most). Thread-safe as DeviceHashProbe is."""
+
+    def __init__(self, index_path: str, mesh):
+        from ..index.store import load_index_shard
+
+        self.mesh = mesh
+        n_shard = mesh.shape["shard"]
+        self.load_s = self.upload_s = 0.0
+        self.probes: dict = {}
+        for j in range(n_shard):
+            t = time.perf_counter()
+            _, keys, _ = load_index_shard(index_path, j, n_shard)
+            self.load_s += time.perf_counter() - t
+            for row in mesh.devices:
+                if (row[j], j) not in self.probes:
+                    probe = DeviceHashProbe(keys, row[j])
+                    self.upload_s += probe.upload_s
+                    self.probes[(row[j], j)] = probe
+            del keys
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self.probes.values())
+
+    def __call__(self, hashes: np.ndarray) -> np.ndarray:
+        q = np.ascontiguousarray(hashes, dtype=np.uint64)
+        parts = np.array_split(q, len(self.mesh.devices))
+        out = []
+        for row, part in zip(self.mesh.devices, parts):
+            bits = np.zeros(part.size, dtype=bool)
+            for j, dev in enumerate(row):
+                bits |= self.probes[(dev, j)](part)
+            out.append(bits)
+        return np.concatenate(out)
 
 
 class KeptKeys:

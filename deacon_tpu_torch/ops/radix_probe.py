@@ -103,6 +103,35 @@ def _fill_slots(keys: torch.Tensor, bits: int, row_lo: int = 0,
     return slots, overflow
 
 
+#: bucket rows filled at once when a block is built (fill_block): bounds
+#: the build's temporaries at ~60 B a key of one piece (~1.5 GB at the
+#: panhuman load of ~100 keys a row) beside the block's slots
+FILL_PIECE_ROWS = 1 << 18
+
+
+def fill_block(keys, bits: int, r0: int, r1: int, device):
+    """(slots, overflow) of bucket rows [r0, r1) of a 2**bits-row table
+    on ``device``, from the unsigned-ascending int64 keys of those rows
+    (a tensor on any device, or a uint64 array): _fill_slots, piece by
+    piece of FILL_PIECE_ROWS rows, each piece's keys moved to ``device``
+    alone, so that neither the block's keys nor the build's temporaries
+    for all of them need be on ``device`` at once."""
+    if isinstance(keys, np.ndarray):
+        keys = torch.from_numpy(
+            np.ascontiguousarray(keys, dtype=np.uint64).view(np.int64))
+    slots = torch.empty((r1 - r0, K_SLOTS), dtype=torch.int64, device=device)
+    over, k0 = [], 0
+    for a in range(r0, r1, FILL_PIECE_ROWS):
+        b = min(a + FILL_PIECE_ROWS, r1)
+        k1 = k0 + _row_start(keys[k0:], bits, b)
+        piece, rest = _fill_slots(keys[k0:k1].to(device), bits, a, b - a)
+        slots[a - r0:b - r0] = piece
+        over.append(rest)
+        del piece
+        k0 = k1
+    return slots, torch.cat(over)
+
+
 def _pack_spill(spill_keys: torch.Tensor):
     """(spill table, sp), or None when even sp = MAX_SPILL_BITS cannot
     hold the fullest spill bucket."""
@@ -179,23 +208,13 @@ def build_radix_shards(keys, n_shard: int, devices) -> list[RadixTable]:
         keys = sorted_unique_keys(keys.to(devices[0]))
     n = keys.numel()
     p = choose_p(n)
-    if n_shard > 1 << p:
-        raise ValueError(f"{n_shard} shards: the table of {n} keys has only "
-                         f"2**{p} bucket rows")
     while True:
-        if -(-(1 << p) // n_shard) > 1 << MAX_LOG2_BUCKETS:
-            hint = (" on one card: shard the table across cards with "
-                    "--mesh 1xN" if n_shard == 1 else " in a shard: use "
-                    "more shards")
-            raise NotImplementedError(
-                f"{n} index keys need more than 2**{MAX_LOG2_BUCKETS} radix "
-                f"buckets{hint}"
-            )
+        _check_rows(n, n_shard, p)
         shards, over = [], []
         for j, dev in enumerate(devices):
-            r0, r1 = j * (1 << p) // n_shard, (j + 1) * (1 << p) // n_shard
+            r0, r1 = shard_rows(j, n_shard, p)
             part = keys[_row_start(keys, p, r0):_row_start(keys, p, r1)]
-            slots, rest = _fill_slots(part.to(dev), p, r0, r1 - r0)
+            slots, rest = fill_block(part, p, r0, r1, dev)
             shards.append(RadixTable(slots, p, part.numel(), row_lo=r0))
             over.append(rest.to(devices[0]))
         spill_keys = torch.cat(over)
@@ -209,6 +228,89 @@ def build_radix_shards(keys, n_shard: int, devices) -> list[RadixTable]:
             return shards
         del shards, over
         p += 1  # extreme skew (not for real hashes): split finer
+
+
+def shard_rows(j: int, n_shard: int, p: int) -> tuple[int, int]:
+    """Bucket rows [r0, r1) of shard j of n_shard in a 2**p-row table."""
+    return j * (1 << p) // n_shard, (j + 1) * (1 << p) // n_shard
+
+
+def _check_rows(n: int, n_shard: int, p: int) -> None:
+    if n_shard > 1 << p:
+        raise ValueError(f"{n_shard} shards: the table of {n} keys has only "
+                         f"2**{p} bucket rows")
+    if -(-(1 << p) // n_shard) > 1 << MAX_LOG2_BUCKETS:
+        hint = (" on one card: shard the table across cards with "
+                "--mesh 1xN" if n_shard == 1 else " in a shard: use "
+                "more shards")
+        raise NotImplementedError(
+            f"{n} index keys need more than 2**{MAX_LOG2_BUCKETS} radix "
+            f"buckets{hint}"
+        )
+
+
+def build_radix_blocks_from_file(path, n_shard: int, owned, agree=None):
+    """The blocks ``owned`` ({shard j: device}) of an index file's radix
+    table cut into n_shard blocks of bucket rows (shard_rows), each built
+    on its device from the keys of its rows alone: the value range
+    [r0 << (64 - p), r1 << (64 - p)), decoded from the file by
+    store.load_index_range. No process holds more keys than its blocks'.
+    p is choose_p of the header's key count, so every process that reads
+    the file picks the same p without seeing the other blocks' keys. Each
+    block packs a spill table of its own overflow (K2 reads a block's
+    spill only for the queries of its rows, so the blocks' hits still sum
+    to the whole table's).
+
+    ``agree(flags)`` returns the element-wise maximum of a list of ints
+    over every process that builds blocks of this table (None: this
+    process alone). The processes pass it together once a round with
+    (error, retry), so that an error in one process (a file error, a
+    table too large) raises in all of them, and the retry at p + 1, when
+    some block's spill cannot be packed, happens in all of them. Returns
+    {j: RadixTable}."""
+    from ..index.store import load_header_and_count, load_index_range
+
+    agree = agree or (lambda flags: flags)
+    err: Exception | None = None
+    try:
+        _, count = load_header_and_count(path)
+        p = choose_p(count)
+        _check_rows(count, n_shard, p)
+    except (OSError, ValueError, RuntimeError) as e:
+        err, count, p = e, 0, 0
+    while True:
+        blocks, retry = {}, 0
+        if err is None:
+            try:
+                for j, dev in sorted(owned.items()):
+                    r0, r1 = shard_rows(j, n_shard, p)
+                    hi = 1 << 64 if r1 == 1 << p else r1 << (64 - p)
+                    _, keys, _ = load_index_range(path, r0 << (64 - p), hi)
+                    slots, rest = fill_block(keys, p, r0, r1, dev)
+                    t = RadixTable(slots, p, keys.size, row_lo=r0)
+                    del keys
+                    if rest.numel():
+                        packed = _pack_spill(rest)
+                        if packed is None:
+                            retry = 1
+                        else:
+                            t.spill, t.sp = packed
+                    blocks[j] = t
+            except (OSError, ValueError, RuntimeError) as e:
+                err = e
+        failed, retry = agree([int(err is not None), retry])
+        if failed:
+            raise err if err is not None else RuntimeError(
+                "a peer process failed to build its block of the index's "
+                "radix table; see its log")
+        if not retry:
+            return blocks
+        del blocks
+        p += 1  # extreme skew (not for real hashes): split finer
+        try:
+            _check_rows(count, n_shard, p)
+        except (ValueError, RuntimeError) as e:
+            err = e
 
 
 def build_radix_table(keys: torch.Tensor) -> RadixTable:

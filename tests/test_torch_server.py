@@ -379,10 +379,12 @@ def test_client_server_down():
 
 
 def test_server_mesh_and_no_card_exit_1(srv, capsys):
+    """A malformed --mesh is refused with the JAX server's message before
+    the index is read (tests/test_torch_pod.py serves on meshes)."""
     assert torch_main(["server", str(srv["idx"]), "-p", "0",
-                       "--mesh", "1x2", "--device", "cpu"]) == 1
+                       "--mesh", "2y4", "--device", "cpu"]) == 1
     err = capsys.readouterr().err
-    assert "--mesh on the server is not ported yet" in err
+    assert "Error: --mesh must be DATAxSHARD (e.g. 2x4), got '2y4'" in err
     assert "Loading index" not in err  # refused before reading the index
     if not torch.cuda.is_available():  # the default --device cuda
         assert torch_main(["server", str(srv["idx"]), "-p", "0"]) == 1

@@ -5,9 +5,11 @@
   ``--mesh 2x4`` on its 8 virtual CPU devices, single and paired, search
   and deplete, and the same ``Engine:`` line.
 * ``--mesh 1x2 --debug``: the DEBUG lines of the JAX CLI's run.
-* A malformed mesh: the JAX CLI's error; ``--mesh pod|pod-data|pod-2d``:
-  an error saying the multi-host modes are not ported; ``--mesh 1x2`` on
-  ``cuda`` with one card: ``need 2 devices, have 1``.
+* A malformed mesh: the JAX CLI's error; ``--mesh pod|pod-data|pod-2d``
+  without what the multi-process modes need (DEACON_COORD for pod,
+  DEACON_POD_SHARDS for pod-2d, an output file for pod-data's parts): an
+  error, exit 1 (tests/test_torch_pod.py runs the modes); ``--mesh 1x2``
+  on ``cuda`` with one card: ``need 2 devices, have 1``.
 """
 
 import json
@@ -128,14 +130,25 @@ def test_malformed_mesh_fails_as_jax_cli(data, capsys, spec):
         f"Error: --mesh must be DATAxSHARD (e.g. 2x4), got {spec!r}")
 
 
-@pytest.mark.parametrize("spec", ["pod", "pod-data", "pod-2d"])
-def test_multi_host_mesh_is_refused(data, capsys, spec):
-    out = data / f"{spec}.fq"
+@pytest.mark.parametrize("spec,message", [
+    ("pod", "Error: --mesh pod needs torch.distributed: set DEACON_COORD, "
+            "DEACON_NUM_PROC and DEACON_PROC_ID on every rank"),
+    ("pod-data", "Error: --mesh pod-data writes per-rank part files and "
+                 "concatenates them; give -o/-O a file path"),
+    ("pod-2d", "Error: --mesh pod-2d requires DEACON_POD_SHARDS (index "
+               "shards per group) to divide DEACON_NUM_PROC; got "
+               "shards=None, nproc=1"),
+])
+def test_multi_host_mesh_is_refused(data, capsys, monkeypatch, spec,
+                                    message):
+    for k in ("DEACON_COORD", "DEACON_NUM_PROC", "DEACON_PROC_ID",
+              "DEACON_POD_SHARDS"):
+        monkeypatch.delenv(k, raising=False)
+    out = "-" if spec == "pod-data" else str(data / f"{spec}.fq")
     assert torch_main(["filter", str(data / "ref.idx"), str(data / "s.fq"),
-                       "-o", str(out), "-q", "--mesh", spec,
+                       "-o", out, "-q", "--mesh", spec,
                        "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert f"Error: --mesh {spec} (multi-host) is not ported yet" in err
+    assert message in capsys.readouterr().err
 
 
 def test_mesh_on_cuda_needs_distinct_cards(data, capsys, monkeypatch):
