@@ -6,7 +6,8 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
 
 0. device: the card's name and power limit (nvidia-smi); then the host
    library (deacon_tpu_torch/io/native/host.cpp: reader, writers, tile
-   packer, index codec, sorted-set merges, host extraction) built by g++,
+   packer, index codec, sorted-set merges, host extraction, and the host
+   engine of --device host) built by g++,
    with its seconds, the g++ version, which codec headers
    (/usr/include/{zlib,zstd,lzma,bzlib}.h) and which codec libraries
    (ldconfig -p) the machine has;
@@ -49,7 +50,10 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
 8. index build at scale: a seeded 104 Mbp multi-record FASTA through
    ``index build`` on the card at k=31 (K1) and k=41 (K3), with Mbp/s;
    both indexes byte-identical to the oracle's over the records the
-   oracle (six worker processes) finishes within its time limit;
+   oracle (six worker processes) finishes within its time limit; and
+   ``index build --device host`` (the host engine's route, -t 8) at both
+   k, quiet and reporting, each byte-identical to the card build, no
+   kernel launched, with seconds, Mbp/s and the host's CPU;
 9. K4 (select_csum) against its plain version (the slot grid of
    select_csum_slots_plain), exact as in phase 5, at the tiles
    (384, 4096), (1152, 2048), (12288, 512) at k=31, w=15 and
@@ -141,9 +145,24 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    rank's wall), and per rank its seconds, load and pipeline seconds,
    peak GB, backend and launches.
 
+19. the host engine (``--device host``) from the phase-15 file (after
+   phase 18, before 17) and phase 18's FASTQ: ``filter --device host``
+   with .gz output, each run a spawned process of this script: single
+   (plain input) building the probe table and writing its ~4.1 GB
+   sidecar (DEACON_PROBE_CACHE=1; free space checked first, too little
+   fails the phase), then single from the BGZF copy and paired (-O) from
+   the sidecar; every output BGZF and, decompressed, byte-identical to
+   ``filter --device cuda`` on the same file (K1 and K2 launched there,
+   nothing in the host runs); then ``server --device host`` started from
+   the sidecar, ``client`` on both wires equal to phase 15's answers of
+   the cuda server. Printed: start seconds (index decode plus table build
+   against the sidecar's load), Mbp/s, threads, peak RSS, the sidecar's
+   bytes, the card's name and power limit, the host's CPU model and
+   cores, the host server's start.
+
 Phases run in the order 0, 1, 2, 9, 10, 3, 11, 12, 14, 4, 4a, 4b, 4c, 13,
-4d, 15, 16, 18, 17, 5, 6, 7, 7b, 8. Each switch is set in os.environ only
-around its phase.
+4d, 15, 16, 18, 19, 17, 5, 6, 7, 7b, 8. Each switch is set in os.environ
+only around its phase.
 
 ``python3 chip_smoke.py --k1`` runs phases 0 and 1 and then K1's part of
 phase 2 alone, printing its numbers as the last line and no result: the
@@ -1932,10 +1951,13 @@ def file_phases(keys_u, genome: bytes, g_hashes, single, pairs,
         keys_host = keys_u.cpu().numpy().view(np.uint64)  # u64 ascending
         dtt.write_index(keys_host, dtt.IndexHeader.new(K_, W_), idx)
         write_s = time.perf_counter() - t
+        answers: dict = {}
         out = {"15": phase15_server(idx, keys_u, keys_host, write_s, single,
-                                    pairs, tmp)}
+                                    pairs, tmp, answers)}
         out["16"] = phase16_index_ops(idx, keys_host, genome, g_hashes, tmp)
         out["18"] = phase18_pod(idx, single, pairs, ont, tmp)
+        out["19"] = phase19_host_engine(idx, single, pairs, ont, tmp,
+                                        answers)
         out["17"] = phase17_host_io(idx, keys_host, single + ont, pairs,
                                     tmp)
         return out
@@ -1978,14 +2000,15 @@ def probe_numbers(probe, keys_u, keys_host) -> dict:
 
 
 def phase15_server(idx: str, keys_u, keys_host, write_s: float, single,
-                   pairs, tmp: str) -> dict:
+                   pairs, tmp: str, answers: dict) -> dict:
     """Phase 15: the server on the card from the panhuman file, the CLI's
     client against it over ~2 Mbp of phase 4's Illumina-like reads
     (single and paired, search and deplete, binary and JSON wires), each
     output byte-identical to ``filter`` on the card from the same file
     (K2's path; the server's is a searchsorted probe) and each summary
     equal apart from the program, the index, the output paths and the
-    timings."""
+    timings. Each client's output and summary go into ``answers`` by
+    (wire, run), for phase 19."""
     import threading
 
     from deacon_tpu_torch.server.app import make_server
@@ -2082,6 +2105,7 @@ def phase15_server(idx: str, keys_u, keys_host, write_s: float, single,
                         or summ_index != f"{url}:{version}"):
                     raise AssertionError(f"phase 15: client {wire} {tag} "
                                          "differs from filter")
+                answers[wire, tag] = (want_out, want_summary)
                 clients += 1
                 runs.append({"run": f"client {wire} {tag}",
                              "s": round(wall, 3),
@@ -2113,6 +2137,305 @@ def phase15_server(idx: str, keys_u, keys_host, write_s: float, single,
     torch.cuda.empty_cache()
     log("15 server and client at panhuman scale", t0, **{
         n: json.dumps(v) for n, v in numbers.items()})
+    return numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the host engine (--device host) at panhuman scale
+# ---------------------------------------------------------------------------
+
+#: seconds a phase-19 run may take before it is killed
+HOST_RUN_LIMIT_S = 300
+
+
+def host_cpu() -> dict:
+    """The host's CPU as /proc/cpuinfo names its first core (model name,
+    vendor, family, model, stepping, whether it has AVX-512F; a virtual
+    machine may report the name as unknown) and the core count."""
+    fields = {"model name": "model", "vendor_id": "vendor",
+              "cpu family": "family", "model": "model_number",
+              "stepping": "stepping"}
+    out = {"model": "unknown"}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break  # the first core only
+            key, _, val = line.partition(":")
+            key = key.strip()
+            if key in fields:
+                out[fields[key]] = val.strip()
+            elif key == "flags":
+                out["avx512f"] = "avx512f" in val.split()
+    out["cores"] = os.cpu_count()
+    return out
+
+
+class PeakRss:
+    """This process's peak resident set while the block runs: VmHWM of
+    /proc/self/status where the kernel reports it (getrusage's ru_maxrss
+    would carry the peak of a parent that forked the process), else the
+    largest resident size of /proc/self/statm sampled every 10 ms by a
+    thread. ``gb`` and ``source`` after the block; gb None when neither
+    file tells."""
+
+    def __enter__(self):
+        import threading
+
+        self.gb, self.source, self._max = None, None, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            with contextlib.suppress(OSError, ValueError, IndexError), \
+                    open("/proc/self/statm") as f:
+                self._max = max(self._max, int(f.read().split()[1]) * page)
+            if self._stop.wait(0.01):
+                return
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        with contextlib.suppress(OSError), open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    self.gb = round(int(line.split()[1]) * 1024 / 1e9, 3)
+                    self.source = "VmHWM"
+                    return False
+        if self._max:
+            self.gb = round(self._max / 1e9, 3)
+            self.source = "statm sampled every 10 ms"
+        return False
+
+
+def _host_run(queue, env: dict, argv: list) -> None:
+    """One run of phase 19 in a spawned process: ``cli_main(argv)`` with
+    ``env`` set, the kernels' counters set to 0 just before and read
+    just after. Puts its exit code, wall seconds, the seconds of its
+    index decode, probe table build, sidecar load and sidecar save, its
+    peak RSS in GB and how it was read (PeakRss), its launches and its
+    standard error's tail on ``queue``."""
+    from deacon_tpu_torch.filter import engine as fengine
+    from deacon_tpu_torch.io import native_loader as nl
+
+    os.environ.update(env)
+    secs = {"decode_s": 0.0, "build_s": 0.0, "sidecar_load_s": 0.0,
+            "sidecar_save_s": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t
+        return run
+
+    fengine.load_index = timed(fengine.load_index, "decode_s")
+    nl.native_probe = timed(nl.native_probe, "build_s")
+    nl.load_probe_sidecar = timed(nl.load_probe_sidecar, "sidecar_load_s")
+    nl.maybe_save_probe_sidecar = timed(nl.maybe_save_probe_sidecar,
+                                        "sidecar_save_s")
+    err = io.StringIO()
+    reset_launches()
+    t = time.perf_counter()
+    with PeakRss() as rss:
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli_main([str(a) for a in argv])
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            rc = f"{type(e).__name__}: {e}"
+        wall = time.perf_counter() - t
+    queue.put({"rc": rc, "s": round(wall, 3),
+               **{n: round(v, 3) for n, v in secs.items()},
+               "peak_rss_gb": rss.gb, "rss_source": rss.source,
+               "launches": launch_counts(),
+               "stderr": err.getvalue()[-1500:]})
+
+
+def host_run(argv: list, env: dict) -> dict:
+    """``_host_run`` in a spawned process of this script; raises unless it
+    exits 0 within HOST_RUN_LIMIT_S, launching no kernel of the port."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    proc = ctx.Process(target=_host_run, args=(q, env, argv))
+    proc.start()
+    try:
+        got = q.get(timeout=HOST_RUN_LIMIT_S)
+        proc.join(timeout=60)
+    except queue_mod.Empty:
+        raise AssertionError(f"phase 19: {argv[:2]} outlasted "
+                             f"{HOST_RUN_LIMIT_S} s") from None
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+    if got["rc"] != 0:
+        raise AssertionError(f"phase 19: {argv} failed: {got}")
+    if any(got["launches"].values()):
+        raise AssertionError(f"phase 19: the host engine launched a kernel "
+                             f"of the port: {got['launches']}")
+    return got
+
+
+def sidecar_bytes(n_keys: int) -> int:
+    """The size of the probe table's sidecar for ``n_keys`` keys: a 4 KiB
+    header page, then n/0.8 + 1 slots and the 2^16-slot spill of 8
+    bytes."""
+    return 4096 + (int(max(n_keys, 1024) / 0.8) + 1 + (1 << 16)) * 8
+
+
+def phase19_host_engine(idx: str, single, pairs, ont, tmp: str,
+                        answers: dict) -> dict:
+    """Phase 19: the host engine (``--device host``) at panhuman scale,
+    from the phase-15 file and phase 18's FASTQ (~13.9 Mbp single and its
+    BGZF copy, ~6 Mbp paired): (a) ``filter --device host`` with .gz
+    output, each run a spawned process of this script: single from the
+    plain file building the probe table and writing its ~4.1 GB sidecar
+    (DEACON_PROBE_CACHE=1; the free space is checked first), then single
+    from the BGZF copy and paired (-O) starting from the sidecar; each
+    output, decompressed, byte-identical to ``filter --device cuda`` on
+    the same file (whose run launches K1 and K2), and each host run
+    launches no kernel; (b) ``server --device host`` started from the
+    sidecar, with ``client`` on both wires, each output and summary equal
+    to phase 15's against the cuda server (``answers``). Printed: start
+    seconds (index decode plus table build, against the sidecar's load),
+    Mbp/s, threads, peak RSS, the sidecar's bytes, the card's name and
+    power limit, the host's CPU model and core count."""
+    import gzip
+    import threading
+
+    from deacon_tpu_torch.server.app import HostProbe, make_server
+
+    t0 = time.perf_counter()
+    _, count = load_header_and_count(idx)
+    need = sidecar_bytes(count) + (1 << 30)
+    free = shutil.disk_usage(tmp).free
+    print(f"[phase 19] tempdir {tmp}: {free / 1e9:.3f} GB free, "
+          f"{need / 1e9:.3f} GB needed", flush=True)
+    if free < need:
+        raise AssertionError(f"phase 19: {free} bytes free in {tmp}, "
+                             f"{need} bytes needed")
+    fq, gz = os.path.join(tmp, "pod_s.fq"), os.path.join(tmp, "pod_s.fq.gz")
+    r1, r2 = (os.path.join(tmp, f"pod_r{m}.fq") for m in (1, 2))
+    bp = {"single": sum(len(r) for r in single + ont),
+          "paired": sum(len(a) + len(b) for a, b in pairs)}
+    threads = 8  # the CLI's default -t
+    ref, runs = {}, {}
+    for name, inputs in (("single", [fq]), ("paired", [r1, r2])):
+        o = os.path.join(tmp, f"hc_{name}.fq.gz")
+        extra = ["-O", o + ".2.gz"] if name == "paired" else []
+        reset_launches()
+        wall, _ = cli_timed(["filter", idx, *inputs, "-o", o, *extra,
+                             "--device", "cuda"])
+        launches = launch_counts()
+        if launches["K1"] <= 0 or launches["K2"] <= 0:
+            raise AssertionError(f"phase 19 cuda {name}: {launches}")
+        ref[name] = [gzip.decompress(read_bytes(o))] + (
+            [gzip.decompress(read_bytes(o + ".2.gz"))] if extra else [])
+        runs[f"cuda {name}"] = {"s": round(wall, 3), "mbp_per_s": round(
+            bp[name] / 1e6 / wall, 3), "launches": launches}
+    if not ref["single"][0] or not ref["paired"][0]:
+        raise AssertionError("phase 19: a cuda output is empty")
+    side = idx + ".probe"
+    env = {"DEACON_PROBE_CACHE": "1"}
+    for label, name, inputs in (("host single, table built", "single", [fq]),
+                                ("host single bgzf, sidecar", "single", [gz]),
+                                ("host paired, sidecar", "paired", [r1, r2])):
+        o = os.path.join(tmp, f"hh_{len(runs)}.fq.gz")
+        extra = ["-O", o + ".2.gz"] if name == "paired" else []
+        got = host_run(["filter", idx, *inputs, "-o", o, *extra, "-t",
+                        threads, "--device", "host"], env)
+        outs = [read_bytes(o)] + ([read_bytes(o + ".2.gz")] if extra else [])
+        if not all(x.endswith(BGZF_EOF) for x in outs):
+            raise AssertionError(f"phase 19 {label}: .gz output not BGZF")
+        if [gzip.decompress(x) for x in outs] != ref[name]:
+            raise AssertionError(f"phase 19 {label}: output differs from "
+                                 "--device cuda")
+        source = ("built at startup" if "built" in label
+                  else "sidecar cache")
+        if f"probe table: {source}" not in got["stderr"]:
+            raise AssertionError(f"phase 19 {label}: {got['stderr']}")
+        start = (got["decode_s"] + got["build_s"] if "built" in label
+                 else got["sidecar_load_s"])
+        runs[label] = {
+            "s": got["s"], "start_s": round(start, 3),
+            **{n: got[n] for n in ("decode_s", "build_s", "sidecar_load_s",
+                                   "sidecar_save_s", "peak_rss_gb",
+                                   "rss_source")},
+            "mbp_per_s": round(bp[name] / 1e6 / got["s"], 3),
+            "mbp_per_s_after_start": round(
+                bp[name] / 1e6 / max(got["s"] - start, 1e-9), 3),
+            "threads": threads}
+        if not os.path.exists(side):
+            raise AssertionError(f"phase 19 {label}: no sidecar {side}")
+    side_bytes = os.path.getsize(side)
+    if side_bytes != sidecar_bytes(count):
+        raise AssertionError(f"phase 19: sidecar of {side_bytes} bytes, "
+                             f"{sidecar_bytes(count)} expected")
+
+    t = time.perf_counter()
+    httpd = make_server(idx, 0, host="127.0.0.1", device="host")
+    start_s = time.perf_counter() - t
+    probe = httpd.state.probe
+    if not isinstance(probe, HostProbe) or probe.source != "sidecar cache":
+        raise AssertionError(f"phase 19: the host server's probe {probe}")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = {"start_s": round(start_s, 3),
+              **{n: round(v, 3) for n, v in httpd.state.timings.items()},
+              "clients": []}
+    try:
+        reset_launches()
+        for (wire, tag), (want, want_summary) in answers.items():
+            inputs = ([os.path.join(tmp, "s.fq")] if tag.startswith("single")
+                      else [os.path.join(tmp, f) for f in ("r1.fq", "r2.fq")])
+            o = os.path.join(tmp, f"hs_{wire}_{tag}.fq")
+            old = os.environ.pop("DEACON_WIRE", None)
+            if wire == "json":
+                os.environ["DEACON_WIRE"] = "json"
+            try:
+                wall, _ = cli_timed(["client", url, *inputs, "-o", o, "-s",
+                                     o + ".json", "-q",
+                                     *(["--deplete"] if "deplete" in tag
+                                       else [])])
+            finally:
+                os.environ.pop("DEACON_WIRE", None)
+                if old is not None:
+                    os.environ["DEACON_WIRE"] = old
+            if read_bytes(o) != want or summary_of(o + ".json") \
+                    != want_summary:
+                raise AssertionError(f"phase 19: client {wire} {tag} of the "
+                                     "host server differs from the cuda "
+                                     "server's")
+            server["clients"].append({"run": f"{wire} {tag}",
+                                      "s": round(wall, 3)})
+        if len(server["clients"]) != 8:
+            raise AssertionError(f"phase 19: {len(server['clients'])} "
+                                 "client runs, 8 expected")
+        if any(launch_counts().values()):
+            raise AssertionError(f"phase 19: the host server launched a "
+                                 f"kernel: {launch_counts()}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        probe.table.close()
+    del httpd, probe
+    os.remove(side)
+    numbers = {"nvidia_smi": nvidia_smi_line(), "cpu": host_cpu(),
+               "keys": count, "sidecar_bytes": side_bytes,
+               "mbp": {n: v / 1e6 for n, v in bp.items()}, "runs": runs,
+               "server": server}
+    log("19 host engine at panhuman scale", t0,
+        **{n: json.dumps(v) for n, v in numbers.items()})
     return numbers
 
 
@@ -2925,6 +3248,42 @@ def _oracle_hashes(args) -> np.ndarray:
     return dtt.compute_minimizer_hashes(seq, k, w)
 
 
+def phase8_host_builds(fa: str, tmp: str, builds: dict, n_bp: int) -> dict:
+    """Phase 8's host route (``index build --device host``, -t 8) at k=31
+    and k=41, quiet (the accumulator writes the file) and reporting (the
+    counting set's per-record totals), each index byte-identical to the
+    card build's; no kernel launches. Returns seconds and Mbp/s."""
+    out = {}
+    for k in (K_, K_WIDE):
+        want = read_bytes(builds[k]["path"])
+        for quiet in (True, False):
+            o = os.path.join(tmp, f"host{k}{'q' if quiet else 'r'}.idx")
+            reset_launches()
+            wall, err = cli_timed(["index", "build", fa, "-k", str(k),
+                                   "-w", str(W_), "-o", o, "-t", "8",
+                                   "--device", "host",
+                                   *(["-q"] if quiet else [])])
+            if any(launch_counts().values()):
+                raise AssertionError(f"host index build launched "
+                                     f"{launch_counts()}")
+            if read_bytes(o) != want:
+                raise AssertionError(f"index build -k {k} --device host "
+                                     f"({'quiet' if quiet else 'reporting'})"
+                                     " differs from the card build")
+            totals = [ln for ln in err.splitlines()
+                      if ln.startswith("  ") and "total minimizers" in ln]
+            if not quiet and (len(totals) != SCALE_RECORDS or not totals[-1]
+                              .endswith(f"total minimizers: "
+                                        f"{builds[k]['keys']}")):
+                raise AssertionError(f"host index build -k {k}: per-record "
+                                     f"totals {totals[-2:]}")
+            out[f"k{k} {'quiet' if quiet else 'reporting'}"] = {
+                "s": round(wall, 3), "mbp_per_s": round(n_bp / 1e6 / wall,
+                                                        3)}
+            os.remove(o)
+    return out
+
+
 def phase8_index_scale(rng) -> dict:
     """index build on the card at k=31 (K1) and k=41 (K3) over a seeded
     104 Mbp FASTA, timed; then the host oracle in worker processes, record
@@ -2958,6 +3317,7 @@ def phase8_index_scale(rng) -> dict:
                          "K3": K.values_select.launches}
             if builds[k]["K3" if k > 32 else "K1"] <= 0:
                 raise AssertionError(f"index build -k {k}: {builds[k]}")
+        host_builds = phase8_host_builds(fa, tmp, builds, n_bp)
         t_or = time.perf_counter()
         deadline = t_or + ORACLE_SECONDS
         pool = mp.get_context("spawn").Pool(ORACLE_WORKERS)
@@ -3001,7 +3361,8 @@ def phase8_index_scale(rng) -> dict:
             pool.join()
         shutil.rmtree(tmp, ignore_errors=True)
     numbers = {"mbp": n_bp / 1e6, "records": len(recs),
-               "builds": builds, "oracle_s": round(oracle_s, 3),
+               "builds": builds, "host_builds": host_builds,
+               "cpu": host_cpu(), "oracle_s": round(oracle_s, 3),
                "oracle_records": n_rec, "oracle_checked_mbp": checked_bp / 1e6}
     log("8 index build at scale", t0, **{
         name: json.dumps(v) for name, v in numbers.items()})

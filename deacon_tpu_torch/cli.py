@@ -1,16 +1,24 @@
 """Command-line interface of the port: ``index build|info|union|diff``,
 ``filter``, ``server`` and ``client``, with the flags of the JAX
-package's (ref: src/main.rs:9-234), ``--device cuda|cpu`` (default cuda)
-for ``index build``, ``index diff``, ``filter`` and ``server``, and
+package's (ref: src/main.rs:9-234), ``--device`` (default cuda) for
+``index build``, ``index diff``, ``filter`` and ``server``, and
 ``--mesh``: ``DATAxSHARD|pod|pod-data|pod-2d`` for ``filter``,
 ``pod-data`` for ``index build``, ``DATAxSHARD|pod`` for ``server``
 (the multi-process modes read the JAX package's DEACON_* environment;
-parallel/multihost.py). The JAX server's ``--device jax|host`` is
-``cuda|cpu`` here."""
+parallel/multihost.py). ``client`` accepts ``--device`` and ``--mesh``
+and ignores them with a warning: the server decides.
+
+The devices against the JAX package's choices (DEVICE_HELP): ``cuda``
+is its ``tpu`` (the server's ``jax``), ``cpu`` its ``cpu``, and ``host``
+(``filter``, ``index build``, ``server``) its host engine: the native
+route of ``filter --device auto``, the server's ``host``, the host
+route of ``index build``. Its oracle switch ``--device numpy`` has no
+counterpart. A ``--mesh`` wins over ``host``, as there."""
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .constants import (
@@ -48,6 +56,14 @@ def _k_diff(value: str) -> int:
         raise argparse.ArgumentTypeError(
             f"{v} is not in 1..={MAX_K_DIFF_FASTX}")
     return v
+
+
+#: --device choices, and their help, of filter, index build and server
+DEVICES = ["cuda", "cpu", "host"]
+DEVICE_HELP = ("cuda (default; the JAX package's tpu), cpu (its cpu) or "
+               "host (its host engine, no card: the native route of "
+               "filter --device auto, the server's host, the host route "
+               "of index build); never falls back")
 
 
 def _add_filter_like_args(p: argparse.ArgumentParser) -> None:
@@ -116,8 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                          help="suppress sequence header output")
     p_build.add_argument("-e", "--entropy-threshold", type=float, default=0.0,
                          help="minimum scaled entropy threshold (0.0-1.0)")
-    p_build.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                         help="compute device (default cuda; never falls back)")
+    p_build.add_argument("--device", default="cuda", choices=DEVICES,
+                         help=DEVICE_HELP)
     p_build.add_argument("--mesh", default=None, choices=["pod-data"],
                          help="'pod-data': each rank (DEACON_NUM_PROC/"
                               "DEACON_PROC_ID) indexes its own record-"
@@ -150,8 +166,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("index", help="path to minimizer index file")
     _add_filter_like_args(p)
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="compute device (default cuda; never falls back)")
+    p.add_argument("--device", default="cuda", choices=DEVICES,
+                   help=DEVICE_HELP + "; host reads and writes the "
+                        "probe table's <index>.probe sidecar "
+                        "(DEACON_PROBE_CACHE: 0 never, 1 always, unset "
+                        "from 4M keys)")
     p.add_argument("--mesh", default=None,
                    metavar="DATAxSHARD|pod|pod-data|pod-2d",
                    help="device mesh, e.g. 2x4: read batches data-parallel "
@@ -174,10 +193,9 @@ def build_parser() -> argparse.ArgumentParser:
     p_server.add_argument("index", help="path to minimizer index file")
     p_server.add_argument("-p", "--port", type=int, default=8888)
     p_server.add_argument("--host", default="0.0.0.0")
-    p_server.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                          help="device holding the index's keys for the "
-                               "membership probes (default cuda; never "
-                               "falls back)")
+    p_server.add_argument("--device", default="cuda", choices=DEVICES,
+                          help="where the membership probes run: "
+                               + DEVICE_HELP)
     p_server.add_argument("--mesh", default=None, metavar="DATAxSHARD|pod",
                           help="shard the index's keys across a device "
                                "mesh (e.g. 1x4; distinct cards on cuda, "
@@ -193,6 +211,10 @@ def build_parser() -> argparse.ArgumentParser:
     p_client.add_argument("server_address",
                           help="server address (including port)")
     _add_filter_like_args(p_client)
+    p_client.add_argument("--device", default=None,
+                          choices=["auto", "tpu", "cpu", "numpy", *DEVICES],
+                          help="ignored with a warning: decisions run on "
+                               "the server")
     p_client.add_argument("--mesh", default=None, metavar="DATAxSHARD",
                           help="ignored with a warning: decisions run on "
                                "the server")
@@ -208,6 +230,8 @@ def main(argv: list[str] | None = None) -> int:
         if args.command == "server":
             from .server.app import run_server
 
+            # a long-lived process: huge pages on a built probe table pay off
+            os.environ.setdefault("DEACON_PROBE_THP", "1")
             run_server(args.index, args.port, host=args.host,
                        device=args.device, mesh=args.mesh)
             return 0
@@ -220,6 +244,9 @@ def main(argv: list[str] | None = None) -> int:
                 file=sys.stderr,
             )  # ref: src/main.rs:320-324
         client = args.command == "client"
+        if client and args.device is not None:
+            print("Warning: --device is ignored in client mode (decisions "
+                  "run on the server).", file=sys.stderr)
         FilterConfig(
             minimizers_path=None if client else args.index,
             server_address=args.server_address if client else None,

@@ -37,7 +37,8 @@ class FilterConfig:
     compression_level: int = DEFAULT_COMPRESSION_LEVEL
     debug: bool = False
     quiet: bool = False
-    #: "cuda" (the default) or "cpu"; see device.resolve_device
+    #: "cuda" (the default), "cpu" (device.resolve_device), or "host": the
+    #: host library's whole pipeline (filter.engine.run_host_pipeline)
     device: str = "cuda"
     batch_size: int = FILTER_BATCH
     #: device mesh "DATAxSHARD" (e.g. "2x4"): read batches data-parallel
@@ -65,7 +66,8 @@ class IndexConfig:
     threads: int = 8
     quiet: bool = False
     entropy_threshold: float = 0.0
-    #: "cuda" (the default) or "cpu"; see device.resolve_device
+    #: "cuda" (the default), "cpu" (device.resolve_device), or "host":
+    #: extraction in the host library (index.build's host route)
     device: str = "cuda"
     #: "pod-data": every rank (DEACON_NUM_PROC, DEACON_PROC_ID) indexes its
     #: own byte range and rank 0 merges the parts (index/pod_build.py)

@@ -12,6 +12,13 @@ writes behind; each holds its own copy of its reads. In client mode
 (``server_address``) the host extracts each batch's minimizers and a
 server decides (RemoteDecider).
 
+``--device host`` hands the whole run to the host library's pipeline
+(run_host_pipeline: reader thread, extraction/probe/decision workers,
+ordered writer; the JAX package's host engine), whose probe table comes
+from the ``<index>.probe`` sidecar when one is valid, so the index's keys
+are never decoded, and is built from them otherwise. Under --debug the
+host path is HostDecider's, as in the JAX package.
+
 The multi-process modes (parallel/multihost.py) enter here too:
 ``--mesh pod`` runs this loop in every rank on the same input over a
 PodPipeline; ``--mesh pod-data`` and ``pod-2d`` split the input into
@@ -22,7 +29,10 @@ runs this loop over its range (``_byte_range``) and hands its stats back
 
 from __future__ import annotations
 
+import dataclasses
+import signal
 import sys
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -39,8 +49,9 @@ from ..index.store import (
     load_index,
     warn_if_foreign_index,
 )
+from ..io import native_loader
 from ..io.fastx import FastxReader, RecordBatch
-from ..io.writers import FastxWriter, format_batch, get_writer
+from ..io.writers import FastxWriter, format_batch, get_writer, resolve_codec
 from ..ops import host_extract
 from ..ops.engine import DevicePipeline
 from ..parallel.sharded import ShardedPipeline, make_mesh, parse_mesh_spec
@@ -282,6 +293,10 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
     them for paired files) reads only that range of the input, and
     ``_return_stats`` returns (stats, k, w) instead of printing the final
     line and summary: filter/pod_data.py's per-rank runs."""
+    if config.mesh and config.device == "host":
+        # --mesh wins over the device choice, as in the JAX package: the
+        # mesh runs on the cards
+        config = dataclasses.replace(config, device="cuda")
     if config.mesh == "pod-data" and _byte_range is None:
         from .pod_data import run_pod_data
 
@@ -317,12 +332,22 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
             f"options: {', '.join(options)}"
         )
 
+    host = config.device == "host" and not config.debug
     if config.minimizers_path is not None:
         warn_if_foreign_index(config.minimizers_path)
         if config.mesh in POD_MESHES:
             # each process builds its blocks from its rows' keys alone
             header, _ = load_header_and_count(config.minimizers_path)
             index = backend = None
+        elif host:
+            # a valid sidecar carries the finished probe table: the keys
+            # are then never decoded
+            header, count = load_header_and_count(config.minimizers_path)
+            probe = native_loader.load_probe_sidecar(config.minimizers_path,
+                                                     count)
+            index = (None if probe is not None
+                     else load_index(config.minimizers_path))
+            backend = None
         else:
             index = load_index(config.minimizers_path)
             header = index.header
@@ -339,6 +364,14 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
     load_time = time.monotonic() - start_time
     if not quiet:
         _eprint(f"Loaded index (k={k}, w={w}) in {_fmt_duration(load_time)}")
+
+    if host and config.minimizers_path is not None:
+        stats = run_host_pipeline(config, probe, index, count, k, w, quiet)
+        if _return_stats:
+            return stats, k, w
+        _finish_run(config, stats, start_time, quiet, tool_version,
+                    summary_index, k, w)
+        return
 
     decider = make_decider(index, backend, k, w, config)
     if not quiet:
@@ -422,6 +455,102 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
         return stats, k, w
     _finish_run(config, stats, start_time, quiet, tool_version,
                 summary_index, k, w)
+
+
+def run_host_pipeline(config: FilterConfig, probe, index, count: int,
+                      k: int, w: int, quiet: bool) -> FilterStats:
+    """``filter --device host``: the whole run in the host library's
+    pipeline (io/native_loader.native_filter_run). ``probe`` is the table
+    mapped from the sidecar, or None, and then it is built from
+    ``index``'s keys, the decoded keys are dropped (the table owns a
+    copy), and the sidecar is saved (DEACON_PROBE_CACHE policy) on a
+    thread that overlaps the run. SIGINT raises the pipeline's cancel
+    flag; a thread polls its counters for the spinner. Returns the run's
+    stats; raises ValueError with the pipeline's message when it fails,
+    and KeyboardInterrupt when it was interrupted."""
+    out_codec = resolve_codec(config.output_path, config.compression_level)
+    output2 = out2_codec = None
+    if config.output2_path is not None and config.input2_path is not None:
+        output2 = config.output2_path
+        out2_codec = resolve_codec(output2, config.compression_level)
+    source = "sidecar cache"
+    saver = None
+    save_error: list[str] = []
+    if probe is None:
+        source = "built at startup"
+        probe = native_loader.native_probe(index.hashes)
+        index.hashes = None
+        index_path = config.minimizers_path
+
+        def save():
+            try:
+                native_loader.maybe_save_probe_sidecar(probe, index_path,
+                                                       count)
+            except OSError as e:
+                save_error.append(str(e))
+
+        saver = threading.Thread(target=save, daemon=True)
+        saver.start()
+    if not quiet:
+        _eprint(f"Engine: native C++ pipeline (probe table: {source})")
+
+    progress = np.zeros(native_loader.PROGRESS_SLOTS, dtype=np.int64)
+    start = time.monotonic()
+    spinner = Spinner(not quiet)
+    stop = threading.Event()
+    interrupted = False
+
+    def on_sigint(signum, frame):
+        # the run blocks this thread in C, where Python's deferred SIGINT
+        # would never be seen: the pipeline polls this flag per batch
+        nonlocal interrupted
+        interrupted = True
+        progress[native_loader.CANCEL] = 1
+
+    try:
+        prev_sigint = signal.signal(signal.SIGINT, on_sigint)
+    except ValueError:  # not the main thread
+        prev_sigint = None
+
+    def poll():
+        view = FilterStats()
+        while not stop.wait(0.1):
+            (view.total_seqs, view.filtered_seqs, view.total_bp,
+             view.output_bp) = (int(x) for x in progress[:4])
+            spinner.update(view, start)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    if config.output_path == "-" or output2 == "-":
+        sys.stdout.flush()
+    try:
+        native_loader.native_filter_run(
+            config.input_path, config.input2_path, config.output_path,
+            output2, out_codec, out2_codec or 0, config.compression_level,
+            probe, k, w, config.prefix_length, config.abs_threshold,
+            config.rel_threshold, config.deplete, config.rename,
+            config.threads, progress)
+    except ValueError:
+        if interrupted:
+            raise KeyboardInterrupt from None
+        raise
+    finally:
+        stop.set()
+        poller.join()
+        spinner.finish()
+        if saver is not None:
+            saver.join()
+        if prev_sigint is not None:
+            signal.signal(signal.SIGINT, prev_sigint)
+    if interrupted:
+        raise KeyboardInterrupt
+    if save_error:
+        _eprint(f"Warning: the probe table was not cached: {save_error[0]}")
+    stats = FilterStats()
+    (stats.total_seqs, stats.filtered_seqs, stats.total_bp, stats.output_bp,
+     stats.filtered_bp, stats.output_seq_counter) = (
+        int(x) for x in progress[:6])
+    return stats
 
 
 def _finish_run(

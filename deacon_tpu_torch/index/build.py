@@ -12,12 +12,23 @@ library (io/native_loader.u64_merge_sorted_unique, u64_diff_sorted_unique).
 Input is read in batches by the host library's reader; a Python object
 is made per record only for the lines printed. Their standard-error
 lines are those of the JAX package's commands.
+
+``build --device host`` is the JAX package's host route (_build_host):
+the host library extracts each batch while a thread reads the next,
+and the distinct keys gather in its counting set (printing per-record
+running totals) or, in a quiet build, in its accumulator, which sorts
+while it writes the index.
 """
 
 from __future__ import annotations
 
+import os
+import queue
 import sys
+import threading
 import time
+
+from pathlib import Path
 
 import numpy as np
 
@@ -25,7 +36,15 @@ from ..config import IndexConfig
 from ..constants import DIFF_STREAM_BATCH, INDEX_BUILD_BATCH, TOOL_NAME, VERSION
 from ..device import resolve_device
 from ..io.fastx import FastxReader, RecordBatch
-from ..io.native_loader import u64_diff_sorted_unique, u64_merge_sorted_unique
+from ..io.native_loader import (
+    NativeCountingSet,
+    NativeRunAcc,
+    empty_huge,
+    extract_batch,
+    u64_diff_sorted_unique,
+    u64_merge_sorted_unique,
+    u64_sort_unique,
+)
 from ..ops.engine import DistinctHashes, IndexBuildPipeline, KeptKeys
 from . import store
 
@@ -68,6 +87,8 @@ def build(config: IndexConfig, _byte_range=None, _return_stats=False):
         raise ValueError(
             f"Constraint violated: k + w - 1 must be odd (k={k}, w={w})"
         )
+    if config.device == "host":
+        return _build_host(config, start, _byte_range, _return_stats)
     pipe = IndexBuildPipeline(k, w, config.entropy_threshold,
                               device=config.device)
     reader = FastxReader.from_path(config.input_path, byte_range=_byte_range)
@@ -97,6 +118,166 @@ def build(config: IndexConfig, _byte_range=None, _return_stats=False):
     )
     store.write_index(keys, store.IndexHeader.new(k, w), config.output_path)
     _eprint(f"Completed in {time.monotonic() - start:.2f}s")
+
+
+#: raw hashes held by a quiet build to stdout before they are folded into
+#: the sorted keys
+MERGE_WATERMARK = 500_000_000
+
+
+def _prefetched_batches(reader):
+    """(meta, arena) of each batch of ``reader``, read by a thread one
+    batch ahead of the caller: read_batch_raw's views die at the next
+    read, so the thread copies each batch once into buffers that come
+    back for reuse when the caller asks for the next batch (recycled, not
+    freed: fresh batch-sized allocations fault their pages in again). A
+    read error is raised here; closing the generator ends the thread."""
+    stop = threading.Event()
+    batches: queue.Queue = queue.Queue(maxsize=2)
+    free: queue.Queue = queue.Queue()
+
+    def put(item) -> None:
+        while not stop.is_set():
+            try:
+                batches.put(item, timeout=0.2)
+                return
+            except queue.Full:
+                pass
+
+    def detach(meta, arena):
+        try:
+            m, a = free.get_nowait()
+        except queue.Empty:
+            m = a = None
+        if m is None or m.size < meta.size:
+            m = empty_huge(max(meta.size, 1), np.int64)
+        if a is None or a.size < arena.size:
+            a = empty_huge(max(arena.size, 1), np.uint8)
+        m[:meta.size] = meta.ravel()
+        a[:arena.size] = arena
+        return m[:meta.size].reshape(meta.shape), a[:arena.size], (m, a)
+
+    def produce():
+        try:
+            while not stop.is_set():
+                meta, arena = reader.read_batch_raw(INDEX_BUILD_BATCH)
+                put(detach(meta, arena) if meta.shape[0] else None)
+                if not meta.shape[0]:
+                    return
+        except Exception as e:  # raised on the consumer's side
+            put(e)
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    try:
+        while (item := batches.get()) is not None:
+            if isinstance(item, BaseException):
+                raise item
+            yield item[0], item[1]
+            free.put(item[2])
+    finally:
+        stop.set()
+        thread.join()
+
+
+def _build_host(config: IndexConfig, start: float, byte_range,
+                return_stats: bool):
+    """``index build --device host`` (the JAX package's host route): the
+    host library extracts; a counting set yields each record's running
+    total, or, quiet, an accumulator takes whole batches and writes the
+    index to a file while it sorts. A quiet build to stdout sorts and
+    deduplicates its raw hashes (u64_sort_unique) and writes them
+    (index_write_sorted). Same index bytes and lines as the device
+    route."""
+    k, w = config.kmer_length, config.window_size
+    reader = FastxReader.from_path(config.input_path, byte_range=byte_range)
+    if not return_stats:
+        _eprint(f"Building index (k={k}, w={w})")
+        _eprint("Engine: host extraction (native C++)")
+    hint = config.capacity_millions * 1_000_000
+    to_file = config.output_path not in (None, "-")
+    cset = None if config.quiet else NativeCountingSet(hint)
+    runacc = NativeRunAcc(hint) if config.quiet and to_file else None
+    keys = np.empty(0, dtype=np.uint64)
+    pending: list[np.ndarray] = []
+    pending_size = 0
+
+    def fold_pending() -> None:
+        nonlocal keys, pending, pending_size
+        if pending:
+            raw = np.concatenate(pending)
+            keys = u64_merge_sorted_unique(keys, u64_sort_unique(raw))
+            pending, pending_size = [], 0
+
+    # the hashes are consumed before the next batch is extracted, except
+    # by a quiet build to stdout, which keeps them in `pending`
+    scratch = None if config.quiet and runacc is None else {}
+    seq_count = total_bp = 0
+    batches = _prefetched_batches(reader)
+    try:
+        for meta, arena in batches:
+            lens = meta[:, 3].copy()
+            hashes, _, counts = extract_batch(
+                arena, meta[:, 2].copy(), lens, k, w, index_mode=True,
+                entropy_threshold=config.entropy_threshold,
+                n_threads=config.threads, scratch=scratch)
+            seq_count += lens.size
+            total_bp += int(lens.sum())
+            if runacc is not None:
+                runacc.add(hashes)
+            elif cset is None:
+                pending.append(hashes)
+                pending_size += hashes.size
+                if pending_size > MERGE_WATERMARK:
+                    fold_pending()
+            else:
+                ends = np.cumsum(counts).tolist()
+                for i, end in enumerate(ends):
+                    cset.insert(hashes[end - int(counts[i]):end],
+                                n_threads=config.threads)
+                    off, n = meta[i, :2].tolist()
+                    rid = arena[off:off + n].tobytes().decode("utf-8",
+                                                              "replace")
+                    _eprint(f"  {rid} ({int(lens[i])}bp), total minimizers: "
+                            f"{len(cset)}")
+    finally:
+        batches.close()  # the reading thread ends before the reader
+        reader.close()
+    header = store.IndexHeader.new(k, w)
+    if runacc is not None:
+        trailer = store.PROVENANCE_MAGIC + bytes([store.SCHEME_DXTP_FMIX32_V1])
+        tmp = f"{config.output_path}.tmp{os.getpid()}"
+        try:
+            count = runacc.finish_write(tmp, header.format_version, k, w,
+                                        trailer, config.threads)
+        except OSError:
+            Path(tmp).unlink(missing_ok=True)
+            raise
+        if count is not None:
+            os.replace(tmp, config.output_path)
+            runacc.close()
+            if return_stats:
+                return count, seq_count, total_bp
+            _eprint(f"Indexed {count} minimizers from {seq_count} "
+                    f"sequence(s) ({total_bp}bp)")
+            _eprint(f"Completed in {time.monotonic() - start:.2f}s")
+            return None
+        # a count with no 4-byte varint form: the generic writer
+        keys = runacc.export_sorted()
+        runacc.close()
+    elif cset is not None:
+        keys = cset.export_sorted(config.threads)
+        cset.close()
+    else:
+        fold_pending()
+    if return_stats:
+        store.write_index(keys, header, config.output_path)
+        return keys.size, seq_count, total_bp
+    _eprint(f"Indexed {keys.size} minimizers from {seq_count} sequence(s) "
+            f"({total_bp}bp)")
+    store.write_index(keys, header, config.output_path)
+    _eprint(f"Completed in {time.monotonic() - start:.2f}s")
+    return None
 
 
 def _rid(batch: RecordBatch, i: int) -> str:

@@ -5,10 +5,20 @@
 // 2-bit packing of
 // row slices into the device tile layout, the index file's varint codec
 // and writer, sorted-set merges of u64 keys, and batched host minimizer
-// extraction. Loaded through ctypes (deacon_tpu_torch/io/native_loader.py),
-// which builds it with g++ at first use. The plain versions it is held
-// against live in io/fastx.py, io/writers.py, ops/pack.py,
-// utils/bincode.py and ops/minimizers_np.py.
+// extraction; and the host engine of `--device host`: a one-shot deflate
+// compressor for BGZF output (fastdef), the index build's accumulator
+// (dx_runacc_*) and counting set (dx_cset_*), the probe table with its
+// <index>.probe sidecar (dx_probe_*), and the whole filter pipeline
+// (dx_filter_run). Loaded through ctypes
+// (deacon_tpu_torch/io/native_loader.py), which builds it with g++ at
+// first use. The plain versions it is held against live in io/fastx.py,
+// io/writers.py, ops/pack.py, utils/bincode.py and ops/minimizers_np.py.
+//
+// Environment read here, with the JAX package's meanings: DEACON_THP and
+// DEACON_PROBE_THP (huge-page advice), DEACON_CHUNK_PARSE and
+// DEACON_CHUNK_BYTES (the pipeline's chunk-parallel reader),
+// DEACON_NATIVE_PROFILE (its per-stage times on stderr). The pipeline's
+// .gz output is always BGZF from fastdef at levels 1-3, zlib above.
 //
 // Codec libraries: zlib is linked (-lz). zstd, xz and bzip2 are bound at
 // first use by dlopen of their runtime libraries (zstd's by the name the
@@ -133,10 +143,13 @@ struct ZstdApi {
                            ZSTD_inBuffer*) = nullptr;
   size_t (*endStream)(ZSTD_CStream*, ZSTD_outBuffer*) = nullptr;
   size_t (*cStreamOutSize)() = nullptr;
+  size_t (*compress)(void*, size_t, const void*, size_t, int) = nullptr;
+  size_t (*compressBound)(size_t) = nullptr;
   bool ok() const {
     return createDStream && freeDStream && initDStream && decompressStream &&
            isError && createCStream && freeCStream && initCStream &&
-           compressStream && endStream && cStreamOutSize;
+           compressStream && endStream && cStreamOutSize && compress &&
+           compressBound;
   }
   // The API of library `name`, or nullptr when it cannot be loaded.
   static const ZstdApi* get(const char* name) {
@@ -158,6 +171,8 @@ struct ZstdApi {
       bind(h, a->compressStream, "ZSTD_compressStream");
       bind(h, a->endStream, "ZSTD_endStream");
       bind(h, a->cStreamOutSize, "ZSTD_CStreamOutSize");
+      bind(h, a->compress, "ZSTD_compress");
+      bind(h, a->compressBound, "ZSTD_compressBound");
       it = bound.emplace(name, std::move(a)).first;
     }
     return it->second->ok() ? it->second.get() : nullptr;
@@ -202,7 +217,13 @@ struct LzmaApi {
   int (*easy_encoder)(lzma_stream*, uint32_t, int) = nullptr;
   int (*code)(lzma_stream*, int) = nullptr;
   void (*end)(lzma_stream*) = nullptr;
-  bool ok() const { return stream_decoder && easy_encoder && code && end; }
+  int (*easy_buffer_encode)(uint32_t, int, const void*, const uint8_t*,
+                            size_t, uint8_t*, size_t*, size_t) = nullptr;
+  size_t (*stream_buffer_bound)(size_t) = nullptr;
+  bool ok() const {
+    return stream_decoder && easy_encoder && code && end &&
+           easy_buffer_encode && stream_buffer_bound;
+  }
   static const LzmaApi& get() {
     static const LzmaApi api = [] {
       LzmaApi a;
@@ -211,6 +232,8 @@ struct LzmaApi {
       bind(h, a.easy_encoder, "lzma_easy_encoder");
       bind(h, a.code, "lzma_code");
       bind(h, a.end, "lzma_end");
+      bind(h, a.easy_buffer_encode, "lzma_easy_buffer_encode");
+      bind(h, a.stream_buffer_bound, "lzma_stream_buffer_bound");
       return a;
     }();
     return api;
@@ -1071,6 +1094,465 @@ struct StreamGz {
 }  // namespace fastinf
 
 // ---------------------------------------------------------------------------
+// Fast one-shot raw-deflate COMPRESSOR (dx_deflate).
+//
+// The write side of the same idea as fastinf: each output member is a
+// whole in-memory buffer (the pipeline's per-batch gzip members; writers
+// compress in parallel workers), so a purpose-built greedy compressor can
+// replace zlib's fast levels: hash-4 greedy LZ with adaptive literal
+// skipping, ONE dynamic-Huffman block per member (built from the member's
+// actual symbol frequencies with a Kraft-repair length limiter), and a
+// stored-block fallback when the data is incompressible. Targets zlib
+// levels 1-3; ratio is comparable
+// (dynamic codes + 32 KiB window) at a multiple of the speed.
+// ---------------------------------------------------------------------------
+
+namespace fastdef {
+
+using fastinf::kDistBase;
+using fastinf::kDistExtra;
+using fastinf::kLenBase;
+using fastinf::kLenExtra;
+
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t buf = 0;
+  int cnt = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  inline void put(uint32_t bits, int n) {  // n <= 31
+    buf |= (uint64_t)bits << cnt;
+    cnt += n;
+    if (cnt >= 32) {
+      size_t off = out.size();
+      out.resize(off + 4);
+      uint32_t w = (uint32_t)buf;
+      memcpy(out.data() + off, &w, 4);
+      buf >>= 32;
+      cnt -= 32;
+    }
+  }
+  void align_byte() {
+    if (cnt & 7) put(0, 8 - (cnt & 7));
+  }
+  void finish() {  // flush remaining whole/partial bytes
+    while (cnt > 0) {
+      out.push_back((uint8_t)buf);
+      buf >>= 8;
+      cnt -= 8;
+    }
+    buf = 0;
+    cnt = 0;
+  }
+};
+
+// Canonical Huffman code lengths for `n` symbols with the given max bit
+// length, from frequencies. Writes lens[] (0 = unused). Simple pairing
+// heap build + Kraft-repair clamp, then promotion back to an exactly
+// complete code (inflaters reject incomplete litlen/code-length codes).
+// force_complete: a single-symbol code gets a dummy second length-1 code
+// (the lone legal incomplete code is the single-distance-code case).
+static void huff_lengths(const uint32_t* freq, int n, int max_len,
+                         uint8_t* lens, bool force_complete) {
+  struct Node {
+    uint64_t f;
+    int l, r;  // children (<n: leaf sym)
+  };
+  std::vector<Node> nodes;
+  std::vector<int> heap;  // indices into nodes, min-heap by freq
+  nodes.reserve(2 * n);
+  for (int s = 0; s < n; s++) {
+    lens[s] = 0;
+    if (freq[s]) {
+      nodes.push_back({freq[s], s, -1});
+      heap.push_back((int)nodes.size() - 1);
+    }
+  }
+  size_t nsym = heap.size();
+  if (nsym == 0) return;
+  if (nsym == 1) {
+    int only = nodes[heap[0]].l;
+    lens[only] = 1;
+    if (force_complete) lens[only == 0 ? 1 : 0] = 1;  // dummy completes it
+    return;
+  }
+  auto cmp = [&](int a, int b) { return nodes[a].f > nodes[b].f; };
+  std::make_heap(heap.begin(), heap.end(), cmp);
+  while (heap.size() > 1) {
+    std::pop_heap(heap.begin(), heap.end(), cmp);
+    int a = heap.back();
+    heap.pop_back();
+    std::pop_heap(heap.begin(), heap.end(), cmp);
+    int b = heap.back();
+    heap.pop_back();
+    nodes.push_back({nodes[a].f + nodes[b].f, a | (1 << 30), b | (1 << 30)});
+    heap.push_back((int)nodes.size() - 1);
+    std::push_heap(heap.begin(), heap.end(), cmp);
+  }
+  // depth-first depths (iterative; tree height <= nsym)
+  std::vector<std::pair<int, int>> stack;  // (node index, depth)
+  stack.push_back({heap[0], 0});
+  while (!stack.empty()) {
+    auto [ni, d] = stack.back();
+    stack.pop_back();
+    const Node& nd = nodes[ni];
+    if (nd.r < 0) {
+      lens[nd.l] = (uint8_t)std::min(d ? d : 1, 255);
+      continue;
+    }
+    stack.push_back({nd.l & ~(1 << 30), d + 1});
+    stack.push_back({nd.r & ~(1 << 30), d + 1});
+  }
+  // Kraft repair: clamp to max_len, then demote until the code is valid
+  uint64_t K = 0;  // sum of 2^(max_len - len)
+  for (int s = 0; s < n; s++) {
+    if (!lens[s]) continue;
+    if (lens[s] > max_len) lens[s] = (uint8_t)max_len;
+    K += 1ull << (max_len - lens[s]);
+  }
+  const uint64_t target = 1ull << max_len;
+  while (K > target) {
+    // lengthen the longest still-lengthenable code
+    int pick = -1;
+    for (int s = 0; s < n; s++)
+      if (lens[s] && lens[s] < max_len &&
+          (pick < 0 || lens[s] > lens[pick]))
+        pick = s;
+    // pick always exists: K > target implies some len < max_len
+    K -= 1ull << (max_len - lens[pick] - 1);
+    lens[pick]++;
+  }
+  while (K < target) {
+    // shorten the longest code whose doubled slot still fits; its
+    // increment divides the deficit, so this converges to K == target
+    int pick = -1;
+    for (int s = 0; s < n; s++)
+      if (lens[s] > 1 && (1ull << (max_len - lens[s])) <= target - K &&
+          (pick < 0 || lens[s] > lens[pick]))
+        pick = s;
+    if (pick < 0) break;  // cannot happen for nsym >= 2; stay safe
+    K += 1ull << (max_len - lens[pick]);
+    lens[pick]--;
+  }
+}
+
+// Canonical code assignment (RFC 1951 ordering) + LSB-first bit reversal.
+static void huff_codes(const uint8_t* lens, int n, uint16_t* codes) {
+  int count[16] = {0};
+  for (int s = 0; s < n; s++) count[lens[s]]++;
+  count[0] = 0;
+  uint32_t next[16] = {0}, code = 0;
+  for (int l = 1; l <= 15; l++) {
+    code = (code + count[l - 1]) << 1;
+    next[l] = code;
+  }
+  for (int s = 0; s < n; s++) {
+    if (!lens[s]) {
+      codes[s] = 0;
+      continue;
+    }
+    codes[s] = (uint16_t)fastinf::rev_bits(next[lens[s]]++, lens[s]);
+  }
+}
+
+static inline int dist_sym(uint32_t d) {  // d in [1, 32768]
+  if (d <= 4) return (int)d - 1;
+  int lg = 31 - __builtin_clz(d - 1);
+  return 2 * lg + (int)(((d - 1) >> (lg - 1)) & 1);
+}
+
+struct LenSymTable {
+  uint8_t sym[256];  // len-3 -> litlen sym - 257
+  LenSymTable() {
+    for (int s = 0; s < 29; s++) {
+      int base = kLenBase[s];
+      int span = 1 << kLenExtra[s];
+      for (int l = base; l < base + span && l <= 258; l++)
+        sym[l - 3] = (uint8_t)s;
+    }
+    sym[258 - 3] = 28;  // len 258 is its own code (not 284's range)
+  }
+};
+static const LenSymTable kLenSym;
+
+// token stream: literal = byte value; match = (1<<31) | (len << 16) | dist
+static constexpr uint32_t kMatchBit = 1u << 31;
+
+static inline uint32_t load32(const uint8_t* p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+
+// Emits stored blocks (final) — the incompressible fallback.
+static void emit_stored(const uint8_t* in, size_t n,
+                        std::vector<uint8_t>& out) {
+  size_t pos = 0;
+  do {
+    size_t take = std::min(n - pos, (size_t)65535);
+    bool final = pos + take == n;
+    out.push_back(final ? 1 : 0);  // BFINAL, BTYPE=00 (byte-aligned here)
+    uint16_t len = (uint16_t)take, nlen = (uint16_t)~take;
+    out.push_back((uint8_t)len);
+    out.push_back((uint8_t)(len >> 8));
+    out.push_back((uint8_t)nlen);
+    out.push_back((uint8_t)(nlen >> 8));
+    out.insert(out.end(), in + pos, in + pos + take);
+    pos += take;
+  } while (pos < n);
+}
+
+static const uint8_t kClOrder[19] = {16, 17, 18, 0, 8,  7, 9,  6, 10, 5,
+                                     11, 4, 12,  3, 13, 2, 14, 1, 15};
+
+// One-shot raw-deflate compress of the whole buffer: ONE dynamic-Huffman
+// block (or stored blocks when that is smaller). Appends to `out`.
+static void deflate_buffer(const uint8_t* in, size_t n,
+                           std::vector<uint8_t>& out) {
+  if (n == 0) {
+    // final stored block of length 0
+    static const uint8_t kEmpty[5] = {1, 0, 0, 0xFF, 0xFF};
+    out.insert(out.end(), kEmpty, kEmpty + 5);
+    return;
+  }
+  // --- pass 1: greedy LZ + frequency tally ---
+  constexpr int kHashBits = 15;
+  constexpr uint32_t kWindow = 32768;
+  std::vector<int64_t> table(1u << kHashBits, -(int64_t)kWindow - 1);
+  std::vector<uint32_t> tokens;
+  tokens.reserve(n / 2 + 16);
+  uint32_t freq_ll[288] = {0}, freq_d[30] = {0};
+  auto hash4 = [](uint32_t x) {
+    return (x * 2654435761u) >> (32 - kHashBits);
+  };
+  size_t pos = 0;
+  uint32_t miss_run = 0;
+  const size_t limit = n >= 12 ? n - 12 : 0;  // room for load32 + extension
+  while (pos < limit) {
+    uint32_t v = load32(in + pos);
+    uint32_t h = hash4(v);
+    int64_t cand = table[h];
+    table[h] = (int64_t)pos;
+    if (cand >= 0 && pos - (size_t)cand <= kWindow &&
+        load32(in + (size_t)cand) == v) {
+      // extend (8 bytes at a time; in has >= 12 bytes of tail slack here)
+      size_t len = 4;
+      size_t max_len = std::min((size_t)258, n - pos);
+      while (len + 8 <= max_len) {
+        uint64_t a, b;
+        memcpy(&a, in + pos + len, 8);
+        memcpy(&b, in + (size_t)cand + len, 8);
+        uint64_t x = a ^ b;
+        if (x) {
+          len += (size_t)(__builtin_ctzll(x) >> 3);
+          goto have_len;
+        }
+        len += 8;
+      }
+      while (len < max_len && in[pos + len] == in[(size_t)cand + len]) len++;
+    have_len:;
+      uint32_t dist = (uint32_t)(pos - (size_t)cand);
+      tokens.push_back(kMatchBit | ((uint32_t)len << 16) | dist);
+      freq_ll[257 + kLenSym.sym[len - 3]]++;
+      freq_d[dist_sym(dist)]++;
+      // sparse insertion inside the match keeps long-match throughput high
+      if (len <= 16) {
+        size_t iend = n - pos >= 4 ? std::min(len, n - pos - 3) : 0;
+        for (size_t i = 1; i < iend; i++)
+          table[hash4(load32(in + pos + i))] = (int64_t)(pos + i);
+      } else if (pos + len + 4 <= n) {
+        table[hash4(load32(in + pos + len - 2))] = (int64_t)(pos + len - 2);
+        table[hash4(load32(in + pos + len - 1))] = (int64_t)(pos + len - 1);
+      }
+      pos += len;
+      miss_run = 0;
+    } else {
+      tokens.push_back(in[pos]);
+      freq_ll[in[pos]]++;
+      // adaptive skip: after a run of misses (incompressible region) emit
+      // several literals per hash probe
+      uint32_t skip = 1 + (miss_run++ >> 7);
+      if (skip > 1) {
+        size_t end = std::min(pos + skip, limit);
+        for (size_t i = pos + 1; i < end; i++) {
+          tokens.push_back(in[i]);
+          freq_ll[in[i]]++;
+        }
+        pos = end;
+      } else {
+        pos++;
+      }
+    }
+  }
+  for (; pos < n; pos++) {
+    tokens.push_back(in[pos]);
+    freq_ll[in[pos]]++;
+  }
+  freq_ll[256] = 1;  // EOB
+
+  // --- Huffman codes from the member's actual frequencies ---
+  uint8_t len_ll[288], len_d[30];
+  uint16_t code_ll[288], code_d[30];
+  huff_lengths(freq_ll, 288, 15, len_ll, /*force_complete=*/true);
+  huff_lengths(freq_d, 30, 15, len_d, /*force_complete=*/false);
+  // HDIST >= 1: deflate requires at least one distance code length
+  int hlit = 286;
+  while (hlit > 257 && len_ll[hlit - 1] == 0) hlit--;
+  int hdist = 30;
+  while (hdist > 1 && len_d[hdist - 1] == 0) hdist--;
+  huff_codes(len_ll, 288, code_ll);
+  huff_codes(len_d, 30, code_d);
+
+  // --- code-length-code compression of the header ---
+  uint8_t all[288 + 30];
+  memcpy(all, len_ll, hlit);
+  memcpy(all + hlit, len_d, hdist);
+  int nall = hlit + hdist;
+  // RLE to CL symbols: (sym, extra_val) pairs
+  std::vector<std::pair<uint8_t, uint8_t>> cl;
+  cl.reserve(nall);
+  uint32_t freq_cl[19] = {0};
+  for (int i = 0; i < nall;) {
+    uint8_t v = all[i];
+    int run = 1;
+    while (i + run < nall && all[i + run] == v) run++;
+    if (v == 0) {
+      while (run >= 3) {
+        int take = std::min(run, 138);
+        if (take >= 11) {
+          cl.push_back({18, (uint8_t)(take - 11)});
+          freq_cl[18]++;
+        } else {
+          cl.push_back({17, (uint8_t)(take - 3)});
+          freq_cl[17]++;
+        }
+        run -= take;
+        i += take;
+      }
+      while (run--) {
+        cl.push_back({0, 0});
+        freq_cl[0]++;
+        i++;
+      }
+    } else {
+      cl.push_back({v, 0});
+      freq_cl[v]++;
+      i++;
+      run--;
+      while (run >= 3) {
+        int take = std::min(run, 6);
+        cl.push_back({16, (uint8_t)(take - 3)});
+        freq_cl[16]++;
+        run -= take;
+        i += take;
+      }
+      while (run--) {
+        cl.push_back({v, 0});
+        freq_cl[v]++;
+        i++;
+      }
+    }
+  }
+  uint8_t len_cl[19];
+  uint16_t code_cl[19];
+  huff_lengths(freq_cl, 19, 7, len_cl, /*force_complete=*/true);
+  huff_codes(len_cl, 19, code_cl);
+  int hclen = 19;
+  while (hclen > 4 && len_cl[kClOrder[hclen - 1]] == 0) hclen--;
+
+  // --- emit the dynamic block ---
+  size_t start = out.size();
+  BitWriter bw(out);
+  bw.put(1, 1);  // BFINAL
+  bw.put(2, 2);  // BTYPE = dynamic
+  bw.put((uint32_t)(hlit - 257), 5);
+  bw.put((uint32_t)(hdist - 1), 5);
+  bw.put((uint32_t)(hclen - 4), 4);
+  for (int i = 0; i < hclen; i++) bw.put(len_cl[kClOrder[i]], 3);
+  for (auto [sym, extra] : cl) {
+    bw.put(code_cl[sym], len_cl[sym]);
+    if (sym == 16) bw.put(extra, 2);
+    else if (sym == 17) bw.put(extra, 3);
+    else if (sym == 18) bw.put(extra, 7);
+  }
+  for (uint32_t t : tokens) {
+    if (!(t & kMatchBit)) {
+      bw.put(code_ll[t], len_ll[t]);
+      continue;
+    }
+    uint32_t len = (t >> 16) & 0x7FFF, dist = t & 0xFFFF;
+    int ls = kLenSym.sym[len - 3];
+    bw.put(code_ll[257 + ls], len_ll[257 + ls]);
+    if (kLenExtra[ls]) bw.put(len - kLenBase[ls], kLenExtra[ls]);
+    int ds = dist_sym(dist);
+    bw.put(code_d[ds], len_d[ds]);
+    if (kDistExtra[ds]) bw.put(dist - kDistBase[ds], kDistExtra[ds]);
+  }
+  bw.put(code_ll[256], len_ll[256]);  // EOB
+  bw.finish();
+
+  // incompressible fallback: stored blocks are smaller
+  if (out.size() - start > n + 5 * (n / 65535 + 1)) {
+    out.resize(start);
+    emit_stored(in, n, out);
+  }
+}
+
+// Whole gzip member (header + raw deflate + CRC32 + ISIZE) appended to out.
+static void gzip_member(const uint8_t* in, size_t n,
+                        std::vector<uint8_t>& out) {
+  static const uint8_t kHdr[10] = {0x1F, 0x8B, 8, 0, 0, 0, 0, 0, 0, 0xFF};
+  out.insert(out.end(), kHdr, kHdr + 10);
+  deflate_buffer(in, n, out);
+  uint32_t crc = (uint32_t)crc32(crc32(0, nullptr, 0), in, (uInt)n);
+  uint32_t isize = (uint32_t)n;
+  uint8_t tail[8];
+  memcpy(tail, &crc, 4);
+  memcpy(tail + 4, &isize, 4);
+  out.insert(out.end(), tail, tail + 8);
+}
+
+// BGZF framing: the same data as bgzip-compatible <= 64 KiB blocks whose
+// compressed size rides a "BC" extra subfield. Still a valid .gz stream,
+// but ALSO block-parallel decodable (by this framework's own reader and
+// by htslib tooling). The canonical 28-byte EOF marker is appended by the
+// writer at stream close, not per member.
+static const uint8_t kBgzfEof[28] = {
+    0x1F, 0x8B, 0x08, 0x04, 0, 0, 0, 0, 0, 0xFF, 0x06, 0x00, 0x42, 0x43,
+    0x02, 0x00, 0x1B, 0x00, 0x03, 0x00, 0, 0, 0, 0, 0, 0, 0, 0};
+
+static bool bgzf_member(const uint8_t* in, size_t n,
+                        std::vector<uint8_t>& out) {
+  constexpr size_t kBlock = 65280;  // bgzip's content size per block
+  size_t pos = 0;
+  std::vector<uint8_t> body;
+  do {
+    size_t take = std::min(n - pos, kBlock);
+    body.clear();
+    deflate_buffer(in + pos, take, body);
+    size_t total = 12 + 6 + body.size() + 8;
+    if (total > 65536) return false;  // cannot satisfy BSIZE: caller falls
+                                      // back to a plain member
+    uint8_t hdr[18] = {0x1F, 0x8B, 8,   4,   0, 0, 0, 0, 0,
+                       0xFF, 6,    0,   'B', 'C', 2, 0, 0, 0};
+    hdr[16] = (uint8_t)((total - 1) & 0xFF);
+    hdr[17] = (uint8_t)((total - 1) >> 8);
+    out.insert(out.end(), hdr, hdr + 18);
+    out.insert(out.end(), body.begin(), body.end());
+    uint32_t crc =
+        (uint32_t)crc32(crc32(0, nullptr, 0), in + pos, (uInt)take);
+    uint32_t isize = (uint32_t)take;
+    uint8_t tail[8];
+    memcpy(tail, &crc, 4);
+    memcpy(tail + 4, &isize, 4);
+    out.insert(out.end(), tail, tail + 8);
+    pos += take;
+  } while (pos < n);
+  return true;
+}
+
+}  // namespace fastdef
+
+// ---------------------------------------------------------------------------
 // Parallel BGZF (blocked gzip) decoding.
 //
 // bgzip/htslib-style .gz files are sequences of independent gzip members of
@@ -1755,8 +2237,25 @@ struct DxReader {
   // bytes go decompression buffer -> here, and the caller reads in place)
   std::vector<uint8_t> batch_arena;
   std::vector<int64_t> batch_meta;
+  // bytes handed back by the filter pipeline's chunk-parallel reader when
+  // it bails to the serial path (anomalous input or EOF tail): drained
+  // before src
+  std::vector<uint8_t> replay;
+  size_t replay_pos = 0;
 
   bool refill() {
+    if (replay_pos < replay.size()) {
+      size_t take = std::min(replay.size() - replay_pos, buf.size());
+      memcpy(buf.data(), replay.data() + replay_pos, take);
+      replay_pos += take;
+      if (replay_pos >= replay.size()) {
+        replay.clear();
+        replay_pos = 0;
+      }
+      pos = 0;
+      len = take;
+      return true;
+    }
     if (eof) return false;
     int64_t got = src.read(buf.data(), buf.size());
     if (got < 0) {
@@ -2725,6 +3224,598 @@ int dx_index_write_sorted(const uint64_t* keys, int64_t n, const char* path,
 
 }  // extern "C"
 
+// Advise THP for a big buffer (DEACON_THP=1): where nested-paging faults
+// are expensive and THP is in madvise mode, 2 MB pages cut first-touch
+// fault counts ~500x. With defrag=madvise, direct compaction can cost
+// more than that saves on these progressively-touched buffers, so the
+// advice is opt-in. Safe no-op when unsupported.
+static void advise_huge(void* p, size_t n) {
+#ifdef MADV_HUGEPAGE
+  static const bool on = [] {
+    const char* e = getenv("DEACON_THP");
+    return e && e[0] == '1';
+  }();
+  if (!on || !p || n < (4u << 20)) return;
+  uintptr_t lo = ((uintptr_t)p + 4095) & ~(uintptr_t)4095;
+  uintptr_t hi = ((uintptr_t)p + n) & ~(uintptr_t)4095;
+  if (hi > lo) madvise((void*)lo, hi - lo, MADV_HUGEPAGE);
+#endif
+}
+
+extern "C" {
+
+// Scatter-accumulator for index build: batches of raw (duplicate-bearing)
+// hashes are scattered by top byte as they arrive, so the final stage
+// sorts 256 small cache-friendly buckets instead of one giant array (no
+// concat, no global scatter passes) and streams them to disk in order.
+struct RunAcc {
+  std::vector<uint64_t> buckets[256];
+  // per-bucket sorted-unique lengths after finish()
+  int64_t uniq[256];
+  size_t advised_cap[256] = {};
+};
+
+void* dx_runacc_new(int64_t capacity_hint) {
+  auto* a = new RunAcc();
+  if (capacity_hint > 0) {
+    size_t per = (size_t)(capacity_hint / 256 + capacity_hint / 2048 + 1024);
+    for (int b = 0; b < 256; b++) {
+      a->buckets[b].reserve(per);
+      advise_huge(a->buckets[b].data(), per * 8);
+      a->advised_cap[b] = a->buckets[b].capacity();
+    }
+  }
+  return a;
+}
+
+void dx_runacc_free(void* h) { delete static_cast<RunAcc*>(h); }
+
+void dx_runacc_add(void* h, const uint64_t* keys, int64_t n) {
+  auto* a = static_cast<RunAcc*>(h);
+  for (int64_t i = 0; i < n; i++) a->buckets[keys[i] >> 56].push_back(keys[i]);
+  for (int b = 0; b < 256; b++)
+    if (a->buckets[b].capacity() != a->advised_cap[b]) {
+      advise_huge(a->buckets[b].data(), a->buckets[b].capacity() * 8);
+      a->advised_cap[b] = a->buckets[b].capacity();
+    }
+}
+
+// Sort+dedup each bucket (parallel), then stream the encoded index to
+// `path` with a patched count. Returns the distinct-key count, or -1 on
+// I/O error, or -2 when the count cannot be patched canonically (caller
+// falls back; only possible for counts <= 0xFFFF or > 0xFFFFFFFF).
+int64_t dx_runacc_finish_write(void* h, const char* path, int32_t fv,
+                               int32_t k, int32_t w, const uint8_t* trailer,
+                               int64_t trailer_len, int32_t n_threads,
+                               char* errbuf, int64_t errbuf_cap) {
+  auto* a = static_cast<RunAcc*>(h);
+  auto set_err = [&](const char* m) {
+    if (errbuf && errbuf_cap > 0) snprintf(errbuf, (size_t)errbuf_cap, "%s", m);
+  };
+  if (n_threads < 1) n_threads = 1;
+  int hw = (int)std::thread::hardware_concurrency();
+  if (hw > 0 && n_threads > hw) n_threads = hw;
+  FILE* f = fopen(path, "wb");
+  if (!f) {
+    set_err("Failed to create index file");
+    return -1;
+  }
+  // header + 252-form count placeholder, patched after the stream. Sort +
+  // dedup run lazily inside the encode workers, so late buckets sort
+  // while early buckets are being written — the sort phase hides behind
+  // the disk write instead of preceding it.
+  uint8_t head[8] = {(uint8_t)fv, (uint8_t)k, (uint8_t)w, 252, 0, 0, 0, 0};
+  bool ok = fwrite(head, 1, 8, f) == 8;
+  static thread_local std::vector<uint64_t> sort_scratch;
+  if (ok)
+    ok = write_blocks_ordered(
+        f, 256, n_threads, [&](int i, const uint64_t** kp, int64_t* np) {
+          auto& v = a->buckets[i];
+          radix_sort_u64_low56(v.data(), (int64_t)v.size(), sort_scratch);
+          int64_t out = v.empty() ? 0 : 1;
+          for (size_t j = 1; j < v.size(); j++)
+            if (v[j] != v[out - 1]) v[out++] = v[j];
+          a->uniq[i] = out;
+          *kp = v.data();
+          *np = out;
+        });
+  int64_t total = 0;
+  for (int b = 0; b < 256; b++) total += a->uniq[b];
+  if (ok && trailer_len > 0)
+    ok = fwrite(trailer, 1, (size_t)trailer_len, f) == (size_t)trailer_len;
+  if (ok && total > 0xFFFF && total <= 0xFFFFFFFFLL) {
+    uint32_t cnt = (uint32_t)total;
+    ok = fseek(f, 4, SEEK_SET) == 0 && fwrite(&cnt, 1, 4, f) == 4;
+  }
+  if (fclose(f) != 0) ok = false;
+  if (!ok) {
+    set_err("index write failed");
+    return -1;
+  }
+  // non-patchable count (tiny or >2^32): discovered post-sort here; the
+  // file is discarded and the caller exports + takes the generic path
+  if (total <= 0xFFFF || total > 0xFFFFFFFFLL) {
+    remove(path);
+    return -2;
+  }
+  return total;
+}
+
+// After a finish attempt returned -2: distinct count and sorted export
+// (bucket order == global order) so the caller can take the generic path.
+int64_t dx_runacc_unique_count(void* h) {
+  auto* a = static_cast<RunAcc*>(h);
+  int64_t total = 0;
+  for (int b = 0; b < 256; b++) total += a->uniq[b];
+  return total;
+}
+
+void dx_runacc_export_sorted(void* h, uint64_t* out) {
+  auto* a = static_cast<RunAcc*>(h);
+  for (int b = 0; b < 256; b++) {
+    memcpy(out, a->buckets[b].data(), (size_t)a->uniq[b] * 8);
+    out += a->uniq[b];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Counting insert set (dx_cset_*): the reference's FxHashSet role on the
+// BUILD side (ref: src/index.rs:96-107, 266-284) — batch inserts return how
+// many keys were new, so the per-sequence running total `index build`
+// prints is O(new keys) instead of a re-sort or merge of the accumulated
+// set (which cost minutes at panhuman scale). 256 partitions by top byte,
+// each an open-addressing linear-probe table; a batch is bucketed once,
+// then threads own disjoint partitions, so no locks. Export sorts each
+// partition by its low 56 bits (top byte is constant within a partition)
+// and concatenates in partition order — globally sorted, ready to write.
+// ---------------------------------------------------------------------------
+
+}  // extern "C"
+
+namespace {
+
+struct CSet {
+  struct Part {
+    uint64_t* slots = nullptr;  // mmap-backed: fresh anon pages are zero
+    size_t n_slots = 0;         // LAZILY, so a big capacity hint costs
+    int64_t used = 0;           // virtual address space, not page zeroing
+    uint32_t mask = 0;
+    ~Part() {
+      if (slots) munmap(slots, n_slots * 8);
+    }
+  };
+  std::array<Part, 256> parts;
+  bool has_zero = false;
+
+  static inline int64_t home(uint64_t v, uint32_t mask) {
+    // bits below the partition byte select the slot (keys are xxh3 uniform)
+    return (int64_t)((v >> 20) & mask);
+  }
+
+  static bool alloc(Part& p, size_t ns) {
+    void* m = mmap(nullptr, ns * 8, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+    if (m == MAP_FAILED) return false;
+    advise_huge(m, ns * 8);  // opt-in via DEACON_THP=1
+    p.slots = (uint64_t*)m;
+    p.n_slots = ns;
+    p.mask = (uint32_t)(ns - 1);
+    return true;
+  }
+
+  static void grow(Part& p) {
+    uint64_t* old = p.slots;
+    size_t old_n = p.n_slots;
+    if (!alloc(p, old_n ? old_n * 2 : 4096))
+      throw std::bad_alloc();
+    for (size_t j = 0; j < old_n; j++) {
+      if (j + 16 < old_n && old[j + 16])
+        __builtin_prefetch(&p.slots[home(old[j + 16], p.mask)], 1);
+      uint64_t v = old[j];
+      if (!v) continue;
+      int64_t i = home(v, p.mask);
+      while (p.slots[i]) i = (i + 1) & p.mask;
+      p.slots[i] = v;
+    }
+    if (old) munmap(old, old_n * 8);
+  }
+
+  // insert keys[lo, hi) (all in partition `b`); returns #new
+  int64_t insert_range(int b, const uint64_t* keys, int64_t lo, int64_t hi) {
+    Part& p = parts[b];
+    int64_t added = 0;
+    constexpr int64_t D = 24;  // prefetch distance: inserts are random
+    for (int64_t j = lo; j < hi; j++) {  // touches of a multi-GB table and
+      if (j + D < hi) {                  // run at DRAM latency otherwise
+        uint64_t vv = keys[j + D];
+        if (vv) __builtin_prefetch(&p.slots[home(vv, p.mask)], 1);
+      }
+      uint64_t v = keys[j];
+      if (v == 0) {
+        if (!has_zero) {
+          has_zero = true;  // partition 0 only; single-threaded per part
+          added++;
+        }
+        continue;
+      }
+      if (p.used * 4 >= (int64_t)p.n_slots * 3) grow(p);
+      int64_t i = home(v, p.mask);
+      for (;;) {
+        uint64_t s = p.slots[i];
+        if (s == v) break;
+        if (s == 0) {
+          p.slots[i] = v;
+          p.used++;
+          added++;
+          break;
+        }
+        i = (i + 1) & p.mask;
+      }
+    }
+    return added;
+  }
+
+  int64_t size() const {
+    int64_t n = has_zero ? 1 : 0;
+    for (auto& p : parts) n += p.used;
+    return n;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* dx_cset_new(int64_t capacity_hint) {
+  auto* s = new CSet();
+  size_t per = 4096;
+  if (capacity_hint > 0)
+    while ((int64_t)per * 3 < capacity_hint / 256 * 4) per *= 2;
+  // Cap the pre-size well below the hint: a small build inside a huge
+  // pre-sized table pays one page fault per insert (the 400M default hint
+  // vs a 25M build = 2M sparse faults), while growth rehashes are
+  // amortized linear with good locality.
+  if (per > (size_t)1 << 18) per = (size_t)1 << 18;
+  for (auto& p : s->parts)
+    if (!CSet::alloc(p, per)) {
+      delete s;
+      return nullptr;
+    }
+  return s;
+}
+
+void dx_cset_free(void* h) { delete static_cast<CSet*>(h); }
+
+int64_t dx_cset_size(void* h) { return static_cast<CSet*>(h)->size(); }
+
+// Returns the number of keys not previously present.
+int64_t dx_cset_insert(void* h, const uint64_t* keys, int64_t n,
+                       int32_t n_threads) {
+  CSet& s = *static_cast<CSet*>(h);
+  if (n <= 0) return 0;
+  int T = n_threads > 0 ? n_threads
+                        : (int)std::thread::hardware_concurrency();
+  if (T < 1) T = 1;
+  if (T > 16) T = 16;
+  // bucket the batch by top byte (one pass), then threads own disjoint
+  // contiguous partition ranges of the scratch array. The scratch is
+  // reused across calls (one caller thread under the GIL): a fresh
+  // value-initialized vector per insert would cost a memset of the batch
+  // plus its page faults per batch at genome scale.
+  static thread_local std::vector<uint64_t> tmp_tls;
+  auto& tmp = tmp_tls;  // bind the caller's instance: the worker lambdas
+  if (tmp.size() < (size_t)n) {  // below must NOT re-resolve thread_local
+    tmp.resize((size_t)n);
+    advise_huge(tmp.data(), tmp.size() * 8);
+  }
+  std::array<int64_t, 257> starts{};
+  {
+    std::array<int64_t, 256> cnt{};
+    for (int64_t i = 0; i < n; i++) cnt[keys[i] >> 56]++;
+    for (int b = 0; b < 256; b++) starts[b + 1] = starts[b] + cnt[b];
+    std::array<int64_t, 256> cur;
+    for (int b = 0; b < 256; b++) cur[b] = starts[b];
+    for (int64_t i = 0; i < n; i++) tmp[cur[keys[i] >> 56]++] = keys[i];
+  }
+  if (T == 1 || n < 65536) {
+    int64_t added = 0;
+    for (int b = 0; b < 256; b++)
+      added += s.insert_range(b, tmp.data(), starts[b], starts[b + 1]);
+    return added;
+  }
+  std::vector<int64_t> th_added(T, 0);
+  std::vector<std::thread> th;
+  for (int t = 0; t < T; t++)
+    th.emplace_back([&, t] {
+      int64_t a = 0;
+      for (int b = t; b < 256; b += T)
+        a += s.insert_range(b, tmp.data(), starts[b], starts[b + 1]);
+      th_added[t] = a;
+    });
+  for (auto& x : th) x.join();
+  int64_t added = 0;
+  for (int64_t a : th_added) added += a;
+  return added;
+}
+
+// Writes the set's keys to `out` in ascending order; returns the count.
+// The set remains valid.
+int64_t dx_cset_export_sorted(void* h, uint64_t* out, int32_t n_threads) {
+  CSet& s = *static_cast<CSet*>(h);
+  int T = n_threads > 0 ? n_threads
+                        : (int)std::thread::hardware_concurrency();
+  if (T < 1) T = 1;
+  if (T > 16) T = 16;
+  std::array<int64_t, 257> offs{};
+  offs[0] = s.has_zero ? 1 : 0;
+  if (s.has_zero) out[0] = 0;
+  for (int b = 0; b < 256; b++) offs[b + 1] = offs[b] + s.parts[b].used;
+  std::atomic<int> next{0};
+  std::vector<std::thread> th;
+  for (int t = 0; t < T; t++)
+    th.emplace_back([&] {
+      std::vector<uint64_t> scratch;
+      for (;;) {
+        int b = next.fetch_add(1);
+        if (b >= 256) return;
+        const CSet::Part& p = s.parts[b];
+        uint64_t* dst = out + offs[b];
+        int64_t m = 0;
+        for (size_t j = 0; j < p.n_slots; j++)
+          if (p.slots[j]) dst[m++] = p.slots[j];
+        radix_sort_u64_low56(dst, m, scratch);
+      }
+    });
+  for (auto& x : th) x.join();
+  return offs[256];
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Single-miss membership probe (the host-side analogue of the device
+// engine's HBM probe; plays the reference's FxHashSet role,
+// ref: src/index.rs:98, src/filter_common.rs:129-155).
+//
+// Index keys are xxh3 outputs — already uniform — and arrive sorted, so a
+// linear-probing table keyed by the top bits needs no rehash and builds in
+// ONE sequential pass: inserting in sorted order keeps home buckets
+// monotone, so each key lands at max(home, cursor) and table values stay
+// globally sorted. Lookups scan forward from `v >> shift` and stop at an
+// empty slot or any value > v — one random cache line touched per probe
+// (an offset table plus binary search would take two dependent misses).
+// Long-lived processes back the slots with THP (DEACON_PROBE_THP=1) to
+// cut TLB misses on multi-GB tables.
+// ---------------------------------------------------------------------------
+
+}  // extern "C"
+
+namespace {
+
+struct ProbeTable {
+  uint64_t* slots = nullptr;
+  size_t map_bytes = 0;  // mmap length (n_slots + spill tail)
+  int64_t n_slots = 0;   // exact ceil(n / kProbeLoad) — NOT a power of two:
+                         // the home mapping is fastrange (mulhi), which is
+                         // monotone in the key just like top-bits, so the
+                         // sorted single-pass fill and the value>v lookup
+                         // cutoff both still hold, and a panhuman-scale
+                         // table costs 8/kProbeLoad bytes/key instead of
+                         // up to 2.67x that from pow2 rounding
+  bool has_zero = false; // 0 is the empty sentinel; a real 0 key is tracked
+                         // out of band
+  uint64_t mix = 1;  // 1 = identity; kProbeMix when keys were scrambled
+  ~ProbeTable() {
+    if (slots) munmap(slots, map_bytes);
+  }
+};
+
+// Expected lookup cost stays ~1 cache line at this load: stored values are
+// globally sorted, so a miss stops at the first value > v, after the mean
+// displacement (~(1/(1-a)-1)/2 ~ 2.8 slots), not the full cluster.
+constexpr double kProbeLoad = 0.80;
+
+static inline int64_t probe_home(uint64_t v, int64_t n_slots) {
+  return (int64_t)((unsigned __int128)v * (uint64_t)n_slots >> 64);
+}
+constexpr int64_t kProbeSpill = 1 << 16;  // top-of-range clusters overflow
+                                          // past n_slots into this zero tail
+constexpr int64_t kProbeMaxDisp = kProbeSpill / 2;  // displacement beyond
+                                                    // this => keys not
+                                                    // uniform => scramble
+constexpr int kProbeAhead = 24;
+constexpr uint64_t kProbeMix = 0x9E3779B97F4A7C15ULL;  // odd => bijective
+
+inline bool probe_lookup(const ProbeTable& t, uint64_t v) {
+  if (v == 0) return t.has_zero;
+  v *= t.mix;  // identity (mix=1) for real xxh3-uniform indexes
+  int64_t pos = probe_home(v, t.n_slots);
+  for (;;) {
+    uint64_t e = t.slots[pos];
+    if (e == v) return true;
+    if (e == 0 || e > v) return false;
+    pos++;
+  }
+}
+
+// One sequential pass over sorted unique nonzero keys: home buckets are
+// monotone, so each key lands at max(home, cursor) and stored values stay
+// globally sorted (which is what lets lookups stop at any value > v).
+// Returns false if some key displaces implausibly far from home — the
+// signature of a non-uniform key distribution.
+static bool probe_fill(ProbeTable* t, const uint64_t* keys, int64_t n) {
+  int64_t cursor = 0;
+  for (int64_t i = 0; i < n; i++) {
+    uint64_t v = keys[i];
+    if (v == 0) {
+      t->has_zero = true;
+      continue;
+    }
+    int64_t home = probe_home(v, t->n_slots);
+    int64_t pos = home > cursor ? home : cursor;
+    if (pos - home > kProbeMaxDisp) return false;
+    t->slots[pos] = v;
+    cursor = pos + 1;
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Builds the linear-probing table from a sorted unique array. The keys
+// array is NOT referenced after this returns.
+//
+// Real index keys are xxh3 outputs, uniform over the full u64 range, so the
+// direct top-bits build succeeds. Structured or range-compressed keys (e.g.
+// synthetic test indexes drawn from [0, 2^63)) would overload part of the
+// table; the fill detects that via a displacement bound and rebuilds with
+// every key multiplied by an odd mixing constant (bijective, so membership
+// is preserved) and re-sorted, which redistributes any input uniformly.
+void* dx_probe_build(const uint64_t* keys, int64_t n) {
+  auto* t = new ProbeTable();
+  t->n_slots = (int64_t)((double)(n < 1024 ? 1024 : n) / kProbeLoad) + 1;
+  t->map_bytes = (size_t)(t->n_slots + kProbeSpill) * 8;
+  t->slots = (uint64_t*)mmap(nullptr, t->map_bytes, PROT_READ | PROT_WRITE,
+                             MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+  if (t->slots == MAP_FAILED) {
+    t->slots = nullptr;
+    delete t;
+    return nullptr;
+  }
+#ifdef MADV_HUGEPAGE
+  // THP cuts TLB misses on multi-GB tables but (with defrag=madvise) can
+  // cost seconds of synchronous direct compaction at first touch on a
+  // fragmented host: worth it only for long-lived processes (the server
+  // sets DEACON_PROBE_THP=1), not for a one-shot CLI run.
+  const char* thp = getenv("DEACON_PROBE_THP");
+  if (thp && thp[0] == '1' && n >= 100'000'000)
+    madvise(t->slots, t->map_bytes, MADV_HUGEPAGE);
+#endif
+  if (probe_fill(t, keys, n)) return t;
+  // non-uniform keys: scramble, re-sort, rebuild
+  memset(t->slots, 0, t->map_bytes);
+  t->has_zero = false;
+  t->mix = kProbeMix;
+  std::vector<uint64_t> mixed(n);
+  for (int64_t i = 0; i < n; i++) mixed[i] = keys[i] * kProbeMix;
+  std::sort(mixed.begin(), mixed.end());
+  if (!probe_fill(t, mixed.data(), n)) {  // can't happen for real inputs
+    delete t;
+    return nullptr;
+  }
+  // a zero KEY scrambles to zero; probe_fill flagged it as has_zero, which
+  // matches lookup's pre-scramble v==0 check. Nothing more to do.
+  return t;
+}
+
+// ---- probe sidecar cache --------------------------------------------------
+// Building the probe table at panhuman scale is one sequential pass, but
+// over GBs of first-touch page zeroing; a sidecar file next to the index
+// (<index>.probe) lets later filter runs mmap the finished table instead,
+// and skip decoding the index's hash array entirely. The sidecar is bound
+// to the index file by (key count, file size, mtime_ns); its layout is
+// the JAX package's, so either package loads the other's.
+
+struct ProbeFileHdr {
+  char magic[8];  // "DXPROBE1"
+  int64_t key_count;
+  int64_t n_slots;
+  int64_t idx_size;
+  int64_t idx_mtime_ns;
+  uint64_t mix;
+  uint8_t has_zero;
+  uint8_t pad[7];
+};
+static_assert(sizeof(ProbeFileHdr) == 56, "sidecar header layout");
+constexpr int64_t kProbeFileDataOff = 4096;  // page-aligned slots blob
+
+// Returns 0 on success. Writes tmp + rename so readers never see a torn file.
+int dx_probe_save(void* handle, const char* path, int64_t key_count,
+                  int64_t idx_size, int64_t idx_mtime_ns) {
+  auto* t = static_cast<ProbeTable*>(handle);
+  // pid-unique temp name: two concurrent first-runs would otherwise
+  // interleave writes into one tmp file and rename the corrupt result
+  std::string tmp =
+      std::string(path) + ".tmp." + std::to_string((long)getpid());
+  FILE* f = fopen(tmp.c_str(), "wb");
+  if (!f) return -1;
+  ProbeFileHdr h{};
+  memcpy(h.magic, "DXPROBE1", 8);
+  h.key_count = key_count;
+  h.n_slots = t->n_slots;
+  h.idx_size = idx_size;
+  h.idx_mtime_ns = idx_mtime_ns;
+  h.mix = t->mix;
+  h.has_zero = t->has_zero ? 1 : 0;
+  uint8_t zero_page[kProbeFileDataOff] = {};
+  memcpy(zero_page, &h, sizeof(h));
+  bool ok = fwrite(zero_page, 1, kProbeFileDataOff, f) == kProbeFileDataOff &&
+            fwrite(t->slots, 1, t->map_bytes, f) == t->map_bytes;
+  ok = fclose(f) == 0 && ok;
+  if (!ok || rename(tmp.c_str(), path) != 0) {
+    remove(tmp.c_str());
+    return -1;
+  }
+  return 0;
+}
+
+// Returns a read-only file-backed ProbeTable, or NULL when the sidecar is
+// missing, malformed, or does not match the index file identity.
+void* dx_probe_load(const char* path, int64_t expect_count, int64_t idx_size,
+                    int64_t idx_mtime_ns) {
+  int fd = open(path, O_RDONLY);
+  if (fd < 0) return nullptr;
+  ProbeFileHdr h{};
+  struct stat st;
+  if (read(fd, &h, sizeof(h)) != (ssize_t)sizeof(h) || fstat(fd, &st) != 0 ||
+      memcmp(h.magic, "DXPROBE1", 8) != 0 || h.key_count != expect_count ||
+      h.idx_size != idx_size || h.idx_mtime_ns != idx_mtime_ns ||
+      h.n_slots <= 0) {
+    close(fd);
+    return nullptr;
+  }
+  size_t map_bytes = (size_t)(h.n_slots + kProbeSpill) * 8;
+  if ((int64_t)st.st_size != kProbeFileDataOff + (int64_t)map_bytes) {
+    close(fd);
+    return nullptr;
+  }
+  void* m = mmap(nullptr, map_bytes, PROT_READ, MAP_PRIVATE, fd,
+                 kProbeFileDataOff);
+  close(fd);
+  if (m == MAP_FAILED) return nullptr;
+  // kick off sequential readahead: probes touch the table randomly, and
+  // random 4 KB faults from disk are far slower than one streaming pass
+  madvise(m, map_bytes, MADV_WILLNEED);
+  auto* t = new ProbeTable();
+  t->slots = (uint64_t*)m;
+  t->map_bytes = map_bytes;
+  t->n_slots = h.n_slots;
+  t->has_zero = h.has_zero != 0;
+  t->mix = h.mix;
+  return t;
+}
+
+void dx_probe_free(void* handle) {
+  delete static_cast<ProbeTable*>(handle);
+}
+
+// out[i] = 1 if q[i] is in the table, else 0.
+void dx_probe_query(void* handle, const uint64_t* q, int64_t nq,
+                    uint8_t* out) {
+  const ProbeTable& t = *static_cast<ProbeTable*>(handle);
+  for (int64_t i = 0; i < nq; i++) {
+    if (i + kProbeAhead < nq)
+      __builtin_prefetch(&t.slots[(size_t)probe_home(q[i + kProbeAhead] * t.mix, t.n_slots)]);
+    out[i] = probe_lookup(t, q[i]) ? 1 : 0;
+  }
+}
+
+}  // extern "C"
+
 // ===========================================================================
 // Host minimizer-extraction engine
 //
@@ -3580,6 +4671,1275 @@ int64_t dx_extract_batch(const uint8_t* arena, const int64_t* starts,
   return off;
 }
 
+}  // extern "C"
+
+// ===========================================================================
+// Fully native streaming filter pipeline
+//
+// The host engine of `filter --device host` (filter/engine.py
+// run_host_pipeline): a reader thread parses records into batches, a
+// worker pool extracts minimizers + probes the index + applies thresholds,
+// and an ordered writer thread formats and writes kept records (the
+// paraseq reader / rayon workers / locked writer architecture of the
+// reference, ref: src/local_filter.rs:153-187,345-573, re-expressed as an
+// explicit pipeline). Semantics (distinct-hit counting, pair-union,
+// threshold math, rename numbering, stats) are bit-identical to the
+// device engine's and to the JAX package's host engine;
+// tests/test_torch_host_engine.py and tests/test_torch_host_fuzz.py hold
+// them to both.
+// ===========================================================================
+
+namespace {
+
+// Opt-in stage profiler (DEACON_NATIVE_PROFILE=1): per-stage time
+// accumulators across all pipeline threads, reported on stderr at the end
+// of dx_filter_run. Zero overhead when off (single branch per section).
+// Compute stages use per-thread CPU time so hypervisor steal and
+// preemption are not booked to whichever stage they interrupt; stall
+// counters are genuine waits and use wall time.
+struct StageProf {
+  bool on = false;
+  std::atomic<int64_t> parse{0};          // reader: record parsing
+  std::atomic<int64_t> reader_stall{0};   // reader: waiting to hand off
+  std::atomic<int64_t> wparse{0};         // workers: chunk parsing
+  std::atomic<int64_t> extract{0};        // workers: minimizer extraction
+  std::atomic<int64_t> probe{0};          // workers: membership + distinct
+  std::atomic<int64_t> format{0};         // workers: record formatting
+  std::atomic<int64_t> compress{0};       // workers: output compression
+  std::atomic<int64_t> worker_stall{0};   // workers: waiting for batches
+  std::atomic<int64_t> emit{0};           // writer: formatting (rename path)
+  std::atomic<int64_t> write{0};          // writer: fwrite/encoder
+  std::atomic<int64_t> writer_stall{0};   // writer: waiting for next batch
+};
+
+static inline int64_t now_ns() {  // wall clock: stall (wait) counters
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+
+static inline int64_t now_cpu_ns() {  // this thread's CPU time: compute
+  struct timespec ts;                 // stages (immune to steal/preemption)
+  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+
+struct FBatch {
+  int64_t seq_no = 0;
+  int64_t n_units = 0;  // records (single) or pairs (paired)
+  int raw_kind = 0;     // 0 = meta filled; 1/2 = unparsed FASTQ/FASTA chunk
+                        // (chunk-parallel mode: the worker parses it)
+  bool paired = false;
+  std::vector<uint8_t> arena;
+  std::vector<int64_t> meta;  // 6 per record: id_off,id_len,seq_off,seq_len,qual_off,qual_len
+  std::vector<uint8_t> keep;  // per unit (worker output)
+  // worker-side formatted (and compressed) output bytes: gzip members /
+  // zstd frames / xz streams concatenate into valid files, so each batch
+  // compresses independently in its worker (pigz-style) and the writer
+  // thread only sequences raw byte writes. Disabled under --rename, whose
+  // numbering is writer-order.
+  bool formatted = false;
+  std::vector<uint8_t> cout1, cout2;
+};
+
+struct FQueue {
+  std::mutex mu;
+  std::condition_variable cv_push, cv_pop;
+  std::deque<FBatch*> q;
+  size_t cap;
+  bool closed = false;
+  explicit FQueue(size_t c) : cap(c) {}
+  bool push(FBatch* b) {
+    std::unique_lock<std::mutex> lk(mu);
+    cv_push.wait(lk, [&] { return q.size() < cap || closed; });
+    if (closed) return false;
+    q.push_back(b);
+    cv_pop.notify_one();
+    return true;
+  }
+  bool pop(FBatch*& out) {
+    std::unique_lock<std::mutex> lk(mu);
+    cv_pop.wait(lk, [&] { return !q.empty() || closed; });
+    if (q.empty()) return false;
+    out = q.front();
+    q.pop_front();
+    cv_push.notify_one();
+    return true;
+  }
+  void close() {
+    std::lock_guard<std::mutex> lk(mu);
+    closed = true;
+    cv_push.notify_all();
+    cv_pop.notify_all();
+  }
+};
+
+struct FilterJob {
+  // index
+  const ProbeTable* probe = nullptr;  // from dx_probe_build / dx_probe_load
+  const ZstdApi* zst = nullptr;       // zstd output members
+  // params
+  int k = 31, w = 15;
+  int64_t prefix_len = 0;
+  int64_t abs_threshold = 2;
+  double rel_threshold = 0.01;
+  bool deplete = false, rename = false;
+  // io
+  DxWriter* w1 = nullptr;
+  DxWriter* w2 = nullptr;
+  // pipeline
+  FQueue work{4};
+  std::mutex done_mu;
+  std::condition_variable done_cv;
+  std::map<int64_t, FBatch*> done;
+  int64_t next_write = 0;
+  std::atomic<int64_t> total_batches{-1};
+  std::atomic<bool> failed{false};
+  int n_workers = 1;                  // worker-pool size
+  bool chunk_parse = false;           // single-end chunk-parallel parsing
+  std::atomic<int> busy_workers{0};   // workers currently inside a batch
+  // recycled batch buffers: arenas/meta/outputs keep their capacity, so
+  // steady state allocates nothing per batch (glibc returns multi-MB frees
+  // to the kernel, making fresh batches a page-fault storm at GB scale)
+  std::mutex free_mu;
+  std::vector<FBatch*> free_list;
+  FBatch* get_batch() {
+    {
+      std::lock_guard<std::mutex> lk(free_mu);
+      if (!free_list.empty()) {
+        FBatch* b = free_list.back();
+        free_list.pop_back();
+        return b;
+      }
+    }
+    return new FBatch();
+  }
+  void put_batch(FBatch* b) {
+    b->n_units = 0;
+    b->raw_kind = 0;
+    b->formatted = false;
+    // arena keeps its SIZE (not just capacity): the chunked reader's
+    // resize() then only zero-fills past the high-water mark; the serial
+    // reader clears it on acquisition
+    b->meta.clear();
+    b->keep.clear();
+    b->cout1.clear();
+    b->cout2.clear();
+    // don't pool chromosome-scale buffers: batches grown by >=8 MB records
+    // would otherwise pin up to 8x their peak size for the whole run
+    constexpr size_t kPoolCap = (size_t)(8 << 20) * 4;
+    if (b->arena.capacity() > kPoolCap) std::vector<uint8_t>().swap(b->arena);
+    if (b->cout1.capacity() > kPoolCap) std::vector<uint8_t>().swap(b->cout1);
+    if (b->cout2.capacity() > kPoolCap) std::vector<uint8_t>().swap(b->cout2);
+    std::lock_guard<std::mutex> lk(free_mu);
+    if (free_list.size() < 8) {
+      free_list.push_back(b);
+      return;
+    }
+    delete b;
+  }
+  void drain_free() {
+    std::lock_guard<std::mutex> lk(free_mu);
+    for (FBatch* b : free_list) delete b;
+    free_list.clear();
+  }
+  // worker-side output formatting/compression (-1 = off, else codec)
+  int precompress1 = -1, precompress2 = -1;
+  int level1 = 0, level2 = 0;
+  int64_t bytes1 = 0, bytes2 = 0;  // writer-thread owned
+  std::mutex err_mu;
+  std::string err;
+  // stats (writer-thread-owned; mirrored into `progress` for live polling)
+  int64_t total_seqs = 0, filtered_seqs = 0, total_bp = 0;
+  int64_t output_bp = 0, filtered_bp = 0, out_counter = 0;
+  int64_t* progress = nullptr;  // [7]: 0-5 stats, 6 = cancel request
+                                //        (set by the caller, e.g. SIGINT)
+
+  bool cancelled() const {
+    return progress != nullptr &&
+           __atomic_load_n(&progress[6], __ATOMIC_RELAXED) != 0;
+  }
+  StageProf prof;
+
+  void fail(const std::string& m) {
+    {
+      std::lock_guard<std::mutex> lk(err_mu);
+      if (err.empty()) err = m;
+    }
+    failed.store(true);
+    work.close();
+    done_cv.notify_all();
+  }
+};
+
+// required distinct hits (ref: src/filter_common.rs:84-96; Rust f64::round
+// is half-away-from-zero and rel >= 0, so floor(x + 0.5))
+static inline int64_t required_hits(const FilterJob& J, int64_t total) {
+  int64_t rel_req =
+      total == 0
+          ? 0
+          : std::max<int64_t>(
+                1, (int64_t)std::floor(J.rel_threshold * (double)total + 0.5));
+  return std::max(J.abs_threshold, rel_req);
+}
+
+// Distinct index hits among `hashes` (seen-set semantics,
+// ref: src/filter_common.rs:129-155), saturating at `req`: the keep
+// decision only compares hits against the precomputed requirement, and
+// distinct hits grow monotonically, so probing can stop the moment the
+// requirement is met — a matching read costs ~req probes instead of one
+// per minimizer. For small req (the common -a 2 case) dedup is a linear
+// scan of the <=req seen hits; large requirements (high -r) keep the
+// sort-based exact count.
+static int64_t count_distinct_hits(const FilterJob& J, const uint64_t* hashes,
+                                   int64_t n, int64_t req,
+                                   std::vector<uint64_t>& scratch) {
+  scratch.clear();
+  const ProbeTable& t = *J.probe;
+  if (n > 0 && n <= kProbeAhead) {
+    // short lists (a 150 bp read has ~18 minimizers) never reach the
+    // streaming prefetch distance below, so every probe would pay a full
+    // DRAM miss; issue all homes upfront instead
+    for (int64_t i = 0; i < n; i++)
+      __builtin_prefetch(
+          &t.slots[(size_t)probe_home(hashes[i] * t.mix, t.n_slots)]);
+  }
+  if (req > 0 && req <= 64) {
+    for (int64_t i = 0; i < n; i++) {
+      if (i + kProbeAhead < n)
+        __builtin_prefetch(
+            &t.slots[(size_t)probe_home(hashes[i + kProbeAhead] * t.mix, t.n_slots)]);
+      uint64_t h = hashes[i];
+      if (!probe_lookup(t, h)) continue;
+      bool seen = false;
+      for (uint64_t s : scratch)
+        if (s == h) { seen = true; break; }
+      if (seen) continue;
+      scratch.push_back(h);
+      if ((int64_t)scratch.size() >= req) return req;  // decision fixed
+    }
+    return (int64_t)scratch.size();
+  }
+  for (int64_t i = 0; i < n; i++) {
+    if (i + kProbeAhead < n)
+      __builtin_prefetch(&t.slots[(size_t)probe_home(hashes[i + kProbeAhead] * t.mix, t.n_slots)]);
+    if (probe_lookup(t, hashes[i])) scratch.push_back(hashes[i]);
+  }
+  if (scratch.empty()) return 0;
+  std::sort(scratch.begin(), scratch.end());
+  int64_t distinct = 1;
+  for (size_t i = 1; i < scratch.size(); i++)
+    if (scratch[i] != scratch[i - 1]) distinct++;
+  return distinct;
+}
+
+// keep decision (ref: src/filter_common.rs:99-112)
+static inline bool keep_decision(const FilterJob& J, int64_t hits,
+                                 int64_t required) {
+  return J.deplete ? hits < required : hits >= required;
+}
+
+// Records at least this long borrow idle workers' cores for extraction
+// (a single-contig FASTA otherwise pins one worker at ~1 core while the
+// rest wait on the queue).
+constexpr int64_t kHugeRecord = 8'000'000;
+
+static void format_kept(const FBatch& b, bool split2,
+                        std::vector<uint8_t>& o1, std::vector<uint8_t>& o2);
+static bool compress_member(int codec, int level, const ZstdApi* zst,
+                            std::vector<uint8_t>& in,
+                            std::vector<uint8_t>& out,
+                            bool emit_empty = false);
+static bool parse_raw_chunk_fastq(FBatch& b, std::string& err);
+static bool parse_raw_chunk_fasta(FBatch& b, std::string& err);
+
+static void filter_worker(FilterJob& J) {
+  ExtractScratch scr;
+  std::vector<uint64_t> hashes, scratch;
+  std::vector<uint32_t> posv;
+  std::vector<uint8_t> fmt1, fmt2;
+  FBatch* b;
+  while (true) {
+    const int64_t t_pop0 = J.prof.on ? now_ns() : 0;
+    if (!J.work.pop(b)) break;
+    if (J.prof.on) J.prof.worker_stall.fetch_add(now_ns() - t_pop0);
+    if (J.failed.load() || J.cancelled()) {
+      if (J.cancelled()) J.fail("Interrupted");
+      delete b;
+      continue;
+    }
+    J.busy_workers.fetch_add(1);
+    if (b->raw_kind) {
+      const int64_t t_wp0 = J.prof.on ? now_cpu_ns() : 0;
+      std::string perr;
+      bool ok = b->raw_kind == 1 ? parse_raw_chunk_fastq(*b, perr)
+                                 : parse_raw_chunk_fasta(*b, perr);
+      b->raw_kind = 0;
+      if (J.prof.on) J.prof.wparse.fetch_add(now_cpu_ns() - t_wp0);
+      if (ok && b->paired) {
+        // interleaved chunks split at 8-newline phase: records are even
+        b->n_units /= 2;
+      }
+      if (!ok) {
+        J.fail(perr);
+        J.busy_workers.fetch_sub(1);
+        delete b;
+        continue;
+      }
+    }
+    b->keep.resize(b->n_units);
+    const int recs_per_unit = b->paired ? 2 : 1;
+    int64_t extract_ns = 0, probe_ns = 0, t_u0 = 0;
+    for (int64_t u = 0; u < b->n_units; u++) {
+      if (J.prof.on) t_u0 = now_cpu_ns();
+      hashes.clear();
+      for (int r = 0; r < recs_per_unit; r++) {
+        const int64_t* m = b->meta.data() + 6 * (u * recs_per_unit + r);
+        int64_t len = m[3];
+        if (J.prefix_len > 0 && len > J.prefix_len) len = J.prefix_len;
+        int64_t max_m = len >= J.k ? len - J.k + 1 : 0;
+        if (max_m <= 0) continue;
+        size_t base = hashes.size();
+        int64_t c;
+        if (len >= kHugeRecord) {
+          // chromosome-scale record: split its window ranges across the
+          // currently idle workers via the batch extractor (outputs are
+          // identical for any thread count). Buffers are sized to the
+          // expected ~2m/(w+1) density, not one-per-position — a 100 Mbp
+          // record would otherwise value-initialize 1.2 GB per batch
+          // (a page-fault storm) — and regrown
+          // on the rare overflow (dx_extract_batch returns -1).
+          int idle = J.n_workers - J.busy_workers.load();
+          int nthreads = 1 + (idle > 0 ? idle : 0);
+          int64_t cap = max_m * 2 / (J.w + 1) + 4096;
+          for (;;) {
+            if (cap > max_m) cap = max_m;
+            hashes.resize(base + cap);
+            posv.resize(cap);
+            int64_t st0 = 0, cnt1 = 0;
+            c = dx_extract_batch(b->arena.data() + m[2], &st0, &len, 1,
+                                 J.k, J.w, /*index_mode=*/0, 0.0f,
+                                 hashes.data() + base, posv.data(), &cnt1,
+                                 cap, nthreads);
+            if (c >= 0 || cap == max_m) break;
+            cap *= 2;
+          }
+        } else {
+          hashes.resize(base + max_m);
+          posv.resize(max_m);
+          c = extract_one(b->arena.data() + m[2], len, J.k, J.w,
+                          /*index_mode=*/false, 0.0f, scr,
+                          hashes.data() + base, posv.data(), max_m);
+        }
+        hashes.resize(base + (c > 0 ? c : 0));
+      }
+      int64_t t_u1 = 0;
+      if (J.prof.on) {
+        t_u1 = now_cpu_ns();
+        extract_ns += t_u1 - t_u0;
+      }
+      int64_t total = (int64_t)hashes.size();
+      int64_t req = required_hits(J, total);
+      int64_t hits =
+          count_distinct_hits(J, hashes.data(), total, req, scratch);
+      b->keep[u] = keep_decision(J, hits, req) ? 1 : 0;
+      if (J.prof.on) probe_ns += now_cpu_ns() - t_u1;
+    }
+    if (J.prof.on) {
+      J.prof.extract.fetch_add(extract_ns);
+      J.prof.probe.fetch_add(probe_ns);
+    }
+    if (J.precompress1 >= 0) {
+      const int64_t t_f0 = J.prof.on ? now_cpu_ns() : 0;
+      fmt1.clear();
+      fmt2.clear();
+      format_kept(*b, J.w2 != nullptr, fmt1, fmt2);
+      const int64_t t_f1 = J.prof.on ? now_cpu_ns() : 0;
+      if (J.prof.on) J.prof.format.fetch_add(t_f1 - t_f0);
+      bool ok = compress_member(J.precompress1, J.level1, J.zst, fmt1,
+                                b->cout1);
+      if (ok && J.w2)
+        ok = compress_member(J.precompress2, J.level2, J.zst, fmt2,
+                             b->cout2);
+      if (J.prof.on) J.prof.compress.fetch_add(now_cpu_ns() - t_f1);
+      if (!ok) {
+        J.fail("output compression failed");
+        delete b;
+        J.busy_workers.fetch_sub(1);
+        continue;
+      }
+      b->formatted = true;
+    }
+    J.busy_workers.fetch_sub(1);
+    {
+      std::lock_guard<std::mutex> lk(J.done_mu);
+      J.done[b->seq_no] = b;
+    }
+    J.done_cv.notify_all();
+  }
+}
+
+static void append_bytes(std::vector<uint8_t>& dst, const uint8_t* p,
+                         int64_t n) {
+  dst.insert(dst.end(), p, p + n);
+}
+
+// format one record (ref: src/remote_filter.rs:1402-1443); identical bytes
+// to io/writers.py format_record
+static void emit_record(std::vector<uint8_t>& dst, const FBatch& b,
+                        const int64_t* m, bool rename, int64_t seqnum) {
+  bool is_fq = m[4] >= 0;
+  dst.push_back(is_fq ? '@' : '>');
+  if (rename) {
+    char tmp[24];
+    int n = snprintf(tmp, sizeof(tmp), "%lld", (long long)seqnum);
+    append_bytes(dst, (const uint8_t*)tmp, n);
+  } else {
+    append_bytes(dst, b.arena.data() + m[0], m[1]);
+  }
+  dst.push_back('\n');
+  append_bytes(dst, b.arena.data() + m[2], m[3]);
+  if (is_fq) {
+    dst.push_back('\n');
+    dst.push_back('+');
+    dst.push_back('\n');
+    append_bytes(dst, b.arena.data() + m[4], m[5]);
+  }
+  dst.push_back('\n');
+}
+
+// format the kept records of a batch exactly as the writer would
+// (rename off): pairs interleave unless a second output splits mates
+static void format_kept(const FBatch& b, bool split2,
+                        std::vector<uint8_t>& o1, std::vector<uint8_t>& o2) {
+  const int rpu = b.paired ? 2 : 1;
+  for (int64_t u = 0; u < b.n_units; u++) {
+    if (!b.keep[u]) continue;
+    const int64_t* m1 = b.meta.data() + 6 * u * rpu;
+    emit_record(o1, b, m1, /*rename=*/false, 0);
+    if (b.paired) emit_record(split2 ? o2 : o1, b, m1 + 6, false, 0);
+  }
+}
+
+// One self-contained compressed member/frame/stream from `in` (codec 0:
+// plain bytes move across). Returns false on codec failure.
+static bool compress_member(int codec, int level, const ZstdApi* zst,
+                            std::vector<uint8_t>& in,
+                            std::vector<uint8_t>& out, bool emit_empty) {
+  if (codec == 0) {
+    out.swap(in);
+    return true;
+  }
+  out.clear();
+  if (in.empty() && !emit_empty) return true;
+  if (codec == 1) {  // gzip member
+    // fast levels route to the purpose-built one-shot compressor (greedy
+    // LZ + per-member dynamic Huffman); higher levels keep zlib's deeper
+    // match search.
+    if (level <= 3 && in.size() < (size_t)1 << 31) {
+      // BGZF framing: still a plain .gz to any consumer, but also
+      // bgzip/htslib-compatible and block-parallel decodable
+      if (!fastdef::bgzf_member(in.data(), in.size(), out)) {
+        out.clear();
+        fastdef::gzip_member(in.data(), in.size(), out);
+      }
+      return true;
+    }
+    z_stream zs{};
+    if (deflateInit2(&zs, level, Z_DEFLATED, 16 + MAX_WBITS, 8,
+                     Z_DEFAULT_STRATEGY) != Z_OK)
+      return false;
+    out.resize(deflateBound(&zs, in.size()) + 32);
+    // zlib's avail_in/avail_out are 32-bit; feed <=1 GiB slices so a
+    // single record >4 GiB is not silently truncated
+    const size_t kChunk = (size_t)1 << 30;
+    size_t in_off = 0, out_off = 0;
+    while (true) {
+      const size_t in_take = std::min(kChunk, in.size() - in_off);
+      const size_t out_room = std::min(kChunk, out.size() - out_off);
+      zs.next_in = in.data() + in_off;
+      zs.avail_in = (uInt)in_take;
+      zs.next_out = out.data() + out_off;
+      zs.avail_out = (uInt)out_room;
+      int r = deflate(&zs, in_off + in_take == in.size() ? Z_FINISH
+                                                         : Z_NO_FLUSH);
+      in_off += in_take - zs.avail_in;
+      out_off += out_room - zs.avail_out;
+      if (r == Z_STREAM_END) break;
+      if (r != Z_OK) {
+        deflateEnd(&zs);
+        out.clear();
+        return false;
+      }
+    }
+    out.resize(out_off);
+    deflateEnd(&zs);
+    return true;
+  }
+  if (codec == 2) {  // zstd frame
+    if (!zst) return false;
+    out.resize(zst->compressBound(in.size()));
+    size_t r = zst->compress(out.data(), out.size(), in.data(), in.size(),
+                             level);
+    if (zst->isError(r)) return false;
+    out.resize(r);
+    return true;
+  }
+  if (codec == 3) {  // xz stream
+    const LzmaApi& lz = LzmaApi::get();
+    out.resize(lz.stream_buffer_bound(in.size()));
+    size_t out_pos = 0;
+    int r = lz.easy_buffer_encode((uint32_t)level, LZMA_CHECK_CRC64, nullptr,
+                                  in.data(), in.size(), out.data(), &out_pos,
+                                  out.size());
+    if (r != LZMA_OK) return false;
+    out.resize(out_pos);
+    return true;
+  }
+  return false;
+}
+
+static void filter_writer(FilterJob& J) {
+  std::vector<uint8_t> buf, buf2;
+  while (true) {
+    FBatch* b = nullptr;
+    const int64_t t_wait0 = J.prof.on ? now_ns() : 0;
+    {
+      std::unique_lock<std::mutex> lk(J.done_mu);
+      J.done_cv.wait(lk, [&] {
+        return J.failed.load() || J.done.count(J.next_write) ||
+               (J.total_batches.load() >= 0 &&
+                J.next_write >= J.total_batches.load());
+      });
+      if (J.failed.load()) return;
+      if (J.total_batches.load() >= 0 &&
+          J.next_write >= J.total_batches.load() &&
+          !J.done.count(J.next_write))
+        return;
+      auto it = J.done.find(J.next_write);
+      b = it->second;
+      J.done.erase(it);
+      J.next_write++;
+    }
+    const int64_t t_emit0 = J.prof.on ? now_ns() : 0;
+    const int64_t t_emit0_cpu = J.prof.on ? now_cpu_ns() : 0;
+    if (J.prof.on) J.prof.writer_stall.fetch_add(t_emit0 - t_wait0);
+    buf.clear();
+    buf2.clear();
+    const int recs_per_unit = b->paired ? 2 : 1;
+    for (int64_t u = 0; u < b->n_units; u++) {
+      const int64_t* m1 = b->meta.data() + 6 * u * recs_per_unit;
+      if (b->paired) {
+        const int64_t* m2 = m1 + 6;
+        int64_t pair_bp = m1[3] + m2[3];
+        J.total_seqs += 2;
+        J.total_bp += pair_bp;
+        if (b->keep[u]) {
+          J.output_bp += pair_bp;
+          J.out_counter += 2;
+          if (!b->formatted) {
+            emit_record(buf, *b, m1, J.rename, J.out_counter - 1);
+            emit_record(J.w2 ? buf2 : buf, *b, m2, J.rename, J.out_counter);
+          }
+        } else {
+          J.filtered_seqs += 2;
+          J.filtered_bp += pair_bp;
+        }
+      } else {
+        J.total_seqs += 1;
+        J.total_bp += m1[3];
+        if (b->keep[u]) {
+          J.output_bp += m1[3];
+          J.out_counter += 1;
+          if (!b->formatted) emit_record(buf, *b, m1, J.rename, J.out_counter);
+        } else {
+          J.filtered_seqs += 1;
+          J.filtered_bp += m1[3];
+        }
+      }
+    }
+    if (b->formatted) {
+      buf.swap(b->cout1);
+      buf2.swap(b->cout2);
+    }
+    J.put_batch(b);
+    const int64_t t_write0 = J.prof.on ? now_ns() : 0;
+    if (J.prof.on) J.prof.emit.fetch_add(now_cpu_ns() - t_emit0_cpu);
+    if (!buf.empty() && dx_writer_write(J.w1, buf.data(), buf.size()) != 0) {
+      J.fail("write failed");
+      return;
+    }
+    J.bytes1 += (int64_t)buf.size();
+    if (J.w2 && !buf2.empty() &&
+        dx_writer_write(J.w2, buf2.data(), buf2.size()) != 0) {
+      J.fail("write failed");
+      return;
+    }
+    J.bytes2 += (int64_t)buf2.size();
+    if (J.prof.on) J.prof.write.fetch_add(now_ns() - t_write0);
+    if (J.progress) {
+      __atomic_store_n(&J.progress[0], J.total_seqs, __ATOMIC_RELAXED);
+      __atomic_store_n(&J.progress[1], J.filtered_seqs, __ATOMIC_RELAXED);
+      __atomic_store_n(&J.progress[2], J.total_bp, __ATOMIC_RELAXED);
+      __atomic_store_n(&J.progress[3], J.output_bp, __ATOMIC_RELAXED);
+      __atomic_store_n(&J.progress[4], J.filtered_bp, __ATOMIC_RELAXED);
+      __atomic_store_n(&J.progress[5], J.out_counter, __ATOMIC_RELAXED);
+    }
+  }
+}
+
+constexpr int64_t kBatchRecords = 10000;  // ref: src/remote_filter.rs:727
+constexpr int64_t kBatchArena = 8 << 20;
+
+// ---------------------------------------------------------------------------
+// Chunk-parallel parsing (single-end inputs). A lone reader thread parsing
+// records caps end-to-end throughput at one core's parse speed no matter
+// how many workers extract — the same wall the reference
+// clears with paraseq's worker-side record parsing. Here the reader only
+// streams raw chunks and splits them at record boundaries — FASTQ records
+// are exactly 4 lines, so the split is the position of the last newline
+// whose running count is a multiple of 4; FASTA splits before the last
+// "\n>" — and each worker parses its own chunk in place. Inputs the phase
+// rule can't handle (blank lines, CR line endings, EOF tails without a
+// final newline) fall back to the proven serial reader mid-stream via
+// DxReader::replay. Disable with DEACON_CHUNK_PARSE=0.
+// ---------------------------------------------------------------------------
+
+constexpr int64_t kRawChunk = 8 << 20;
+
+// Parse a raw FASTQ chunk (complete 4-line records, ends with '\n') into
+// meta. Returns false with `err` set on malformed records.
+static bool parse_raw_chunk_fastq(FBatch& b, std::string& err) {
+  const uint8_t* a = b.arena.data();
+  const int64_t n = (int64_t)b.arena.size();
+  int64_t pos = 0;
+  auto next_nl = [&](int64_t p) -> int64_t {
+    const void* q = memchr(a + p, '\n', (size_t)(n - p));
+    return q ? (int64_t)((const uint8_t*)q - a) : -1;
+  };
+  while (pos < n) {
+    if (a[pos] != '@') {
+      err = "Record marker mismatch";
+      return false;
+    }
+    int64_t e0 = next_nl(pos);
+    if (e0 < 0) {
+      err = "Truncated FASTQ record";
+      return false;
+    }
+    int64_t s_off = e0 + 1;
+    int64_t e1 = next_nl(s_off);
+    if (e1 < 0) {
+      err = "Truncated FASTQ record";
+      return false;
+    }
+    int64_t p_off = e1 + 1;
+    int64_t e2 = next_nl(p_off);
+    if (e2 < 0 || p_off >= n || a[p_off] != '+') {
+      err = "Expected '+' separator";
+      return false;
+    }
+    int64_t q_off = e2 + 1;
+    int64_t e3 = next_nl(q_off);
+    if (e3 < 0) {
+      err = "Truncated FASTQ record (missing quality)";
+      return false;
+    }
+    if (e3 - q_off != e1 - s_off) {
+      err = "Quality length != sequence length";
+      return false;
+    }
+    int64_t m[6] = {pos + 1, e0 - pos - 1, s_off, e1 - s_off, q_off,
+                    e3 - q_off};
+    b.meta.insert(b.meta.end(), m, m + 6);
+    b.n_units++;
+    pos = e3 + 1;
+  }
+  return true;
+}
+
+// Parse a raw FASTA chunk (every record starts at a '>' line; the chunk
+// starts at one and ends with '\n'). Multi-line sequences are compacted in
+// place so each sequence is one contiguous (off, len) span, exactly like
+// the serial parser's appended lines.
+static bool parse_raw_chunk_fasta(FBatch& b, std::string& err) {
+  uint8_t* a = b.arena.data();
+  const int64_t n = (int64_t)b.arena.size();
+  int64_t pos = 0;
+  auto next_nl = [&](int64_t p) -> int64_t {
+    const void* q = memchr(a + p, '\n', (size_t)(n - p));
+    return q ? (int64_t)((const uint8_t*)q - a) : n;
+  };
+  while (pos < n) {
+    while (pos < n && a[pos] == '\n') pos++;  // blank lines between records
+    if (pos >= n) break;
+    if (a[pos] != '>') {
+      err = "Record marker mismatch";
+      return false;
+    }
+    int64_t e0 = next_nl(pos);
+    int64_t id_len = e0 - pos - 1;
+    if (id_len > 0 && a[e0 - 1] == '\r') id_len--;
+    int64_t seq_off = e0 < n ? e0 + 1 : n;
+    int64_t w = seq_off, p = seq_off;
+    while (p < n && a[p] != '>') {
+      int64_t e = next_nl(p);
+      int64_t L = e - p;
+      if (L > 0 && a[e - 1] == '\r') L--;
+      if (w != p && L > 0) memmove(a + w, a + p, (size_t)L);
+      w += L;
+      p = e + 1;
+    }
+    int64_t m[6] = {pos + 1, id_len, seq_off, w - seq_off, -1, 0};
+    b.meta.insert(b.meta.end(), m, m + 6);
+    b.n_units++;
+    pos = p;
+  }
+  return true;
+}
+
+// One pass over a chunk: newline count plus the anomalies that break the
+// FASTQ 4-line phase rule (blank lines, CR endings). Plain byte compares —
+// the compiler vectorizes both loops.
+static void scan_chunk(const uint8_t* a, int64_t n, int64_t* newlines,
+                       bool* anomaly) {
+  int64_t cnt = 0;
+  uint8_t bad = 0;
+  for (int64_t i = 0; i < n; i++) {
+    cnt += a[i] == '\n';
+    bad |= a[i] == '\r';
+  }
+  for (int64_t i = 0; i + 1 < n; i++)
+    bad |= (a[i] == '\n') & (a[i + 1] == '\n');
+  *newlines = cnt;
+  *anomaly = bad != 0;
+}
+
+// memrchr is a GNU extension; keep the file building on non-glibc
+static inline const void* dx_memrchr(const void* s, int c, size_t n) {
+#ifdef __GLIBC__
+  return memrchr(s, c, n);
+#else
+  const uint8_t* p = (const uint8_t*)s;
+  while (n--)
+    if (p[n] == (uint8_t)c) return p + n;
+  return nullptr;
+#endif
+}
+
+static int64_t nth_newline_from_end(const uint8_t* a, int64_t n, int64_t k) {
+  int64_t i = n;
+  while (k-- > 0) {
+    const void* p = dx_memrchr(a, '\n', (size_t)i);
+    if (!p) return -1;
+    i = (int64_t)((const uint8_t*)p - a);
+  }
+  return i;
+}
+
+// Chunk-parallel reader loop (single-end only). Returns true when the
+// stream was fully consumed (or the job failed); false to bail — the
+// unconsumed bytes are loaded into r->replay and the caller's serial loop
+// continues from `seq_no`.
+// `pair` = interleaved FASTQ: records group in 2s, so chunks split at
+// newline multiples of 8 and each batch unit is a mate pair.
+// `records_out` accumulates parsed records (for the serial path's
+// interleaved-count error message after a bail).
+static bool filter_reader_chunked(FilterJob& J, DxReader* r,
+                                  int64_t& seq_no, bool pair,
+                                  int64_t* records_out) {
+  int64_t chunk_bytes = kRawChunk;
+  if (const char* cb = getenv("DEACON_CHUNK_BYTES")) {
+    int64_t v = atoll(cb);
+    if (v >= 256) chunk_bytes = v;  // test knob: tiny chunks exercise the
+  }                                 // carry/accumulate/bail machinery
+  std::vector<uint8_t> carry;
+  int kind = 0;  // 1 fastq, 2 fasta
+  while (!J.failed.load()) {
+    if (J.cancelled()) {
+      J.fail("Interrupted");
+      return true;
+    }
+    FBatch* b = J.get_batch();
+    b->seq_no = seq_no;
+    b->paired = pair;
+    const int64_t t0 = J.prof.on ? now_ns() : 0;
+    // Accumulate reads in place until the arena holds at least one
+    // complete record; only the newly read tail is ever scanned, so a
+    // record spanning many chunks costs one pass, not one per chunk.
+    // resize() on a pool-recycled arena (put_batch keeps its size) only
+    // zero-fills when growing past the high-water mark.
+    if (b->arena.size() < carry.size() + (size_t)chunk_bytes)
+      b->arena.resize(carry.size() + (size_t)chunk_bytes);
+    if (!carry.empty()) memcpy(b->arena.data(), carry.data(), carry.size());
+    int64_t filled = (int64_t)carry.size();
+    carry.clear();
+    int64_t scanned = 0;    // prefix already counted/checked
+    int64_t newlines = 0;   // FASTQ: '\n' count in [0, scanned)
+    bool eof = false;
+    int64_t cut = -1;  // arena[0, cut) parses here; the rest carries over
+    for (;;) {
+      int64_t want = filled + chunk_bytes;
+      if ((int64_t)b->arena.size() < want) b->arena.resize((size_t)want);
+      while (filled < want) {
+        int64_t got =
+            r->src.read(b->arena.data() + filled, (size_t)(want - filled));
+        if (got < 0) {
+          J.put_batch(b);
+          J.fail("decompression/read error");
+          return true;
+        }
+        if (got == 0) {
+          eof = true;
+          break;
+        }
+        filled += got;
+      }
+      if (filled == 0) {
+        J.put_batch(b);
+        return true;  // clean EOF
+      }
+      if (kind == 0) {
+        uint8_t first = b->arena[0];
+        if (first == '@') kind = 1;
+        else if (first == '>' && !pair) kind = 2;
+        else {
+          // interleaved FASTA, leading blank line, or unknown marker:
+          // let the serial parser handle it (exact errors / blank-skip)
+          r->replay.assign(b->arena.begin(), b->arena.begin() + filled);
+          J.put_batch(b);
+          return false;
+        }
+        r->is_fastq = kind == 1 ? 1 : 0;
+      }
+      if (kind == 1) {
+        int64_t tail_nl = 0;
+        bool anomaly = false;
+        scan_chunk(b->arena.data() + scanned, filled - scanned, &tail_nl,
+                   &anomaly);
+        // blank-line pair straddling the scan boundary
+        if (scanned > 0 && b->arena[scanned - 1] == '\n' &&
+            b->arena[scanned] == '\n')
+          anomaly = true;
+        // ...or straddling a batch cut: every batch starts right after a
+        // newline (stream start or post-cut carry), so a leading '\n'
+        // here is a blank line whose partner newline left with the
+        // previous batch
+        if (scanned == 0 && b->arena[0] == '\n') anomaly = true;
+        if (anomaly) {
+          r->replay.assign(b->arena.begin(), b->arena.begin() + filled);
+          J.put_batch(b);
+          return false;
+        }
+        newlines += tail_nl;
+        scanned = filled;
+        const int64_t glines = pair ? 8 : 4;  // lines per batch unit
+        if (newlines / glines > 0) {
+          int64_t cut_nl = nth_newline_from_end(
+              b->arena.data(), filled, newlines % glines + 1);
+          cut = cut_nl + 1;
+          break;
+        }
+      } else {
+        // FASTA: the latest "\n>" boundary; earlier tails had none (else
+        // we would have cut there), so scan only the new tail
+        int64_t lo = scanned > 0 ? scanned - 1 : 0;
+        int64_t i = filled - lo;
+        const uint8_t* base = b->arena.data() + lo;
+        while (i > 1) {
+          const void* p = dx_memrchr(base, '>', (size_t)i);
+          if (!p) break;
+          int64_t q = (int64_t)((const uint8_t*)p - base);
+          if (q > 0 && base[q - 1] == '\n') {
+            cut = lo + q;
+            break;
+          }
+          i = q;
+        }
+        scanned = filled;
+        if (cut > 0) break;
+      }
+      if (eof) break;  // no boundary found in the whole stream tail
+    }
+    if (cut <= 0) {
+      // partial record tail at EOF (or a lone trailing record): the
+      // serial parser handles the EOF rules and exact error messages
+      r->replay.assign(b->arena.begin(), b->arena.begin() + filled);
+      J.put_batch(b);
+      return false;
+    }
+    if (cut < filled)
+      carry.assign(b->arena.begin() + cut, b->arena.begin() + filled);
+    if (records_out && kind == 1) {
+      const int64_t gl = pair ? 8 : 4;
+      *records_out += (newlines - newlines % gl) / 4;
+    }
+    b->arena.resize((size_t)cut);
+    b->raw_kind = kind;
+    b->n_units = 0;
+    if (J.prof.on) J.prof.parse.fetch_add(now_ns() - t0);
+    seq_no++;
+    const int64_t t_push0 = J.prof.on ? now_ns() : 0;
+    if (!J.work.push(b)) {
+      delete b;
+      return true;
+    }
+    if (J.prof.on) J.prof.reader_stall.fetch_add(now_ns() - t_push0);
+    if (eof) {
+      if (!carry.empty()) {
+        r->replay.assign(carry.begin(), carry.end());
+        return false;  // EOF tail (e.g. no final newline): serial finishes
+      }
+      return true;
+    }
+  }
+  return true;
+}
+
+// reader thread body; mode: 0 single, 1 paired (two readers), 2 interleaved
+static void filter_reader(FilterJob& J, DxReader* r1, DxReader* r2, int mode) {
+  int64_t seq_no = 0;
+  int64_t chunked_records = 0;
+  if ((mode == 0 || mode == 2) && J.chunk_parse) {
+    if (filter_reader_chunked(J, r1, seq_no, mode == 2, &chunked_records)) {
+      J.total_batches.store(seq_no);
+      J.work.close();
+      J.done_cv.notify_all();
+      return;
+    }
+    // anomalous input or EOF tail: r1->replay holds the unconsumed bytes
+    // and the serial loop below continues from the same batch number
+  }
+  int64_t interleaved_count = chunked_records;
+  bool eof = false;
+  while (!eof && !J.failed.load()) {
+    if (J.cancelled()) {
+      J.fail("Interrupted");
+      return;
+    }
+    FBatch* b = J.get_batch();
+    b->seq_no = seq_no;
+    b->paired = mode != 0;
+    b->arena.clear();
+    b->arena.reserve(kBatchArena + 65536);
+    int64_t m1[6], m2[6];
+    const int64_t t_parse0 = J.prof.on ? now_ns() : 0;
+    while (b->n_units < kBatchRecords) {
+      const size_t arena_save = b->arena.size();
+      int rc = r1->parse_record_into(b->arena, m1);
+      if (rc < 0) {
+        J.fail(r1->error);
+        delete b;
+        return;
+      }
+      if (rc == 0) {
+        eof = true;
+        break;
+      }
+      if (mode == 0) {
+        b->meta.insert(b->meta.end(), m1, m1 + 6);
+        b->n_units++;
+        if ((int64_t)b->arena.size() >= kBatchArena) break;
+      } else {
+        if (mode == 2) interleaved_count++;
+        DxReader* rr = mode == 1 ? r2 : r1;
+        int rc2 = rr->parse_record_into(b->arena, m2);
+        if (rc2 < 0) {
+          J.fail(rr->error);
+          delete b;
+          return;
+        }
+        if (rc2 == 0) {
+          if (mode == 2) {
+            char msg[96];
+            snprintf(msg, sizeof(msg),
+                     "Uneven number of interleaved sequence pairs. Found "
+                     "%lld records.",
+                     (long long)interleaved_count);
+            J.fail(msg);
+            delete b;
+            return;
+          }
+          // paired files: stop at the shorter input, dropping the
+          // unpaired mate's bytes (ref: src/remote_filter.rs:931-955)
+          b->arena.resize(arena_save);
+          eof = true;
+          break;
+        }
+        if (mode == 2) interleaved_count++;
+        b->meta.insert(b->meta.end(), m1, m1 + 6);
+        b->meta.insert(b->meta.end(), m2, m2 + 6);
+        b->n_units++;
+        if ((int64_t)b->arena.size() >= kBatchArena) break;
+      }
+    }
+    if (J.prof.on) J.prof.parse.fetch_add(now_ns() - t_parse0);
+    if (b->n_units == 0) {
+      delete b;
+      break;
+    }
+    seq_no++;
+    const int64_t t_push0 = J.prof.on ? now_ns() : 0;
+    if (!J.work.push(b)) {
+      delete b;
+      return;
+    }
+    if (J.prof.on) J.prof.reader_stall.fetch_add(now_ns() - t_push0);
+  }
+  J.total_batches.store(seq_no);
+  J.work.close();
+  J.done_cv.notify_all();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Run the full native filter pipeline. Returns 0 on success, -1 on error
+// (message in errbuf). `progress` is int64[7]: total_seqs, filtered_seqs,
+// total_bp, output_bp, filtered_bp, output_seq_counter — updated atomically
+// per batch for live polling; final values are the exact run totals —
+// plus [6], a cancel-request flag the caller may set (e.g. from a SIGINT
+// handler) to abort the run promptly with an "Interrupted" error.
+// mode: 0 single (input), 1 paired (input+input2), 2 interleaved (input).
+// range_start/range_end: when range_end >= 0, read only input[start:end)
+// (plain files at exact record boundaries — pod-data sharding). Paired mode
+// additionally takes range2_start/range2_end for input2, split at the SAME
+// record indices (io/split.py split_paired_ranges); interleaved stdin is
+// not range-splittable.
+int dx_filter_run(const char* input, const char* input2, const char* output,
+                  const char* output2, int out_codec, int out_level,
+                  int out2_codec, int out2_level, void* probe_handle, int32_t k, int32_t w,
+                  int64_t prefix_len, int64_t abs_threshold,
+                  double rel_threshold, int32_t deplete, int32_t rename,
+                  int32_t n_threads, int64_t* progress, char* errbuf,
+                  int64_t errbuf_cap, int64_t range_start,
+                  int64_t range_end, int64_t range2_start,
+                  int64_t range2_end, const char* zstd_lib) {
+  auto set_err = [&](const std::string& m) {
+    if (errbuf && errbuf_cap > 0)
+      snprintf(errbuf, (size_t)errbuf_cap, "%s", m.c_str());
+  };
+  int mode = input2 == nullptr ? 0
+             : (strcmp(input, "-") == 0 && strcmp(input2, "-") == 0) ? 2
+                                                                     : 1;
+  if (range_end >= 0 && mode == 2) {
+    set_err("byte-range filtering does not support interleaved stdin");
+    return -1;
+  }
+  if (range_end >= 0 && mode == 1 && range2_end < 0) {
+    set_err("paired byte-range filtering needs a range for input2");
+    return -1;
+  }
+  DxReader* r1 = range_end >= 0
+                     ? dx_open_range(input, range_start, 0,
+                                     range_end - range_start)
+                     : dx_open(input, zstd_lib);
+  if (!r1) {
+    set_err(std::string("Failed to open ") + input + ": " + g_open_error);
+    return -1;
+  }
+  DxReader* r2 = nullptr;
+  if (mode == 1) {
+    r2 = range2_end >= 0
+             ? dx_open_range(input2, range2_start, 0,
+                             range2_end - range2_start)
+             : dx_open(input2, zstd_lib);
+    if (!r2) {
+      dx_close(r1);
+      set_err(std::string("Failed to open ") + input2 + ": " + g_open_error);
+      return -1;
+    }
+  }
+  FilterJob J;
+  {
+    const char* p = getenv("DEACON_NATIVE_PROFILE");
+    J.prof.on = p != nullptr && p[0] != '\0' && p[0] != '0';
+  }
+  if (out_codec == 2 || (output2 && out2_codec == 2)) {
+    J.zst = ZstdApi::get(zstd_lib);
+    if (!J.zst) {
+      dx_close(r1);
+      if (r2) dx_close(r2);
+      set_err(std::string("cannot load ") + zstd_lib +
+              ", which this output's compression needs");
+      return -1;
+    }
+  }
+  J.probe = static_cast<ProbeTable*>(probe_handle);
+  J.k = k;
+  J.w = w;
+  J.prefix_len = prefix_len;
+  J.abs_threshold = abs_threshold;
+  J.rel_threshold = rel_threshold;
+  J.deplete = deplete != 0;
+  J.rename = rename != 0;
+  J.progress = progress;
+  // Workers format+compress their own batches (independent gzip members /
+  // zstd frames / xz streams concatenate into valid files), so the writer
+  // thread only sequences raw writes and output compression parallelizes
+  // across the pool. --rename numbering is writer-order, so it keeps the
+  // single-stream writer-side path.
+  const bool precompress = !J.rename;
+  if (precompress) {
+    J.precompress1 = out_codec;
+    J.precompress2 = out2_codec;
+    J.level1 = out_level;
+    J.level2 = out2_level;
+  }
+  J.w1 = dx_writer_open(output, precompress ? 0 : out_codec, out_level,
+                        zstd_lib);
+  if (!J.w1) {
+    dx_close(r1);
+    if (r2) dx_close(r2);
+    set_err(std::string("Failed to create output file: ") + output + ": " +
+            g_open_error);
+    return -1;
+  }
+  if (output2) {
+    J.w2 = dx_writer_open(output2, precompress ? 0 : out2_codec, out2_level,
+                          zstd_lib);
+    if (!J.w2) {
+      dx_writer_close(J.w1);
+      dx_close(r1);
+      if (r2) dx_close(r2);
+      set_err(std::string("Failed to create output file: ") + output2 + ": " +
+              g_open_error);
+      return -1;
+    }
+  }
+
+  if (n_threads < 1) {
+    int hw = (int)std::thread::hardware_concurrency();
+    n_threads = hw > 0 ? hw : 1;
+  }
+  J.n_workers = n_threads;
+  {
+    // Chunk-parallel parsing pays when the worker pool is wide enough
+    // that a serial parsing reader would be the throughput ceiling; on
+    // narrow machines (fewer than 4 cores) it only adds scan work to
+    // saturated cores. Env overrides:
+    // DEACON_CHUNK_PARSE=1 forces on, =0 forces off.
+    int hw = (int)std::thread::hardware_concurrency();
+    int effective = hw > 0 && hw < n_threads ? hw : n_threads;
+    const char* cp = getenv("DEACON_CHUNK_PARSE");
+    if (cp && cp[0] == '0') J.chunk_parse = false;
+    else if (cp && cp[0] == '1') J.chunk_parse = true;
+    else J.chunk_parse = effective >= 4;
+  }
+
+  std::vector<std::thread> workers;
+  for (int t = 0; t < n_threads; t++)
+    workers.emplace_back([&J] { filter_worker(J); });
+  std::thread writer_th([&J] { filter_writer(J); });
+  std::thread reader_th([&] { filter_reader(J, r1, r2, mode); });
+
+  reader_th.join();
+  for (auto& th : workers) th.join();
+  J.done_cv.notify_all();
+  writer_th.join();
+
+  // free any batches stranded by a failure, then the recycling pool
+  for (auto& kv : J.done) delete kv.second;
+  J.done.clear();
+  J.drain_free();
+
+  dx_close(r1);
+  if (r2) dx_close(r2);
+  // a compressed output with zero members must still be a valid stream
+  // (the single-stream writer emits header+trailer even when empty)
+  int rc_empty = 0;
+  if (precompress && !J.failed.load()) {
+    std::vector<uint8_t> empty_in, member;
+    if (J.bytes1 == 0 && out_codec != 0 &&
+        compress_member(out_codec, out_level, J.zst, empty_in, member,
+                        true) &&
+        !member.empty() &&
+        dx_writer_write(J.w1, member.data(), member.size()) != 0)
+      rc_empty = -1;
+    if (J.w2 && J.bytes2 == 0 && out2_codec != 0 &&
+        compress_member(out2_codec, out2_level, J.zst, empty_in, member,
+                        true) &&
+        !member.empty() &&
+        dx_writer_write(J.w2, member.data(), member.size()) != 0)
+      rc_empty = -1;
+  }
+  // BGZF-framed outputs end with the canonical 28-byte EOF marker
+  if (precompress && !J.failed.load()) {
+    if (out_codec == 1 && out_level <= 3 &&
+        dx_writer_write(J.w1, fastdef::kBgzfEof, sizeof(fastdef::kBgzfEof)) !=
+            0)
+      rc_empty = -1;
+    if (J.w2 && out2_codec == 1 && out2_level <= 3 &&
+        dx_writer_write(J.w2, fastdef::kBgzfEof, sizeof(fastdef::kBgzfEof)) !=
+            0)
+      rc_empty = -1;
+  }
+  int rc1 = dx_writer_close(J.w1);
+  int rc2 = J.w2 ? dx_writer_close(J.w2) : 0;
+  if (rc_empty) rc1 = -1;
+
+  if (J.prof.on) {
+    auto ms = [](const std::atomic<int64_t>& v) {
+      return (double)v.load() / 1e6;
+    };
+    fprintf(stderr,
+            "DEACON_NATIVE_PROFILE (ms; compute=thread-CPU, io/stall=wall; %d workers)\n"
+            "  reader: parse=%.1f stall=%.1f\n"
+            "  workers: parse=%.1f extract=%.1f probe=%.1f format=%.1f "
+            "compress=%.1f stall=%.1f\n"
+            "  writer: emit=%.1f write=%.1f stall=%.1f\n",
+            J.n_workers, ms(J.prof.parse), ms(J.prof.reader_stall),
+            ms(J.prof.wparse), ms(J.prof.extract), ms(J.prof.probe),
+            ms(J.prof.format),
+            ms(J.prof.compress), ms(J.prof.worker_stall), ms(J.prof.emit),
+            ms(J.prof.write), ms(J.prof.writer_stall));
+  }
+
+  if (J.failed.load()) {
+    std::lock_guard<std::mutex> lk(J.err_mu);
+    set_err(J.err);
+    return -1;
+  }
+  if (rc1 != 0 || rc2 != 0) {
+    set_err("native write failed while finishing output");
+    return -1;
+  }
+  if (progress) {
+    progress[0] = J.total_seqs;
+    progress[1] = J.filtered_seqs;
+    progress[2] = J.total_bp;
+    progress[3] = J.output_bp;
+    progress[4] = J.filtered_bp;
+    progress[5] = J.out_counter;
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// Test hook for the fast raw-deflate compressor: appends nothing to the
+// caller; writes up to out_cap bytes, returns the compressed length or -1
+// if it would not fit.
+int64_t dx_deflate_raw(const uint8_t* in, int64_t in_len, uint8_t* out,
+                       int64_t out_cap) {
+  std::vector<uint8_t> buf;
+  fastdef::deflate_buffer(in, (size_t)in_len, buf);
+  if ((int64_t)buf.size() > out_cap) return -1;
+  memcpy(out, buf.data(), buf.size());
+  return (int64_t)buf.size();
+}
+
+// Test hook for the fast raw-deflate decoder: `out` must have
+// kInflateMargin writable bytes beyond out_len. 0 = ok, -1 = error.
+int dx_inflate_raw(const uint8_t* in, int64_t in_len, uint8_t* out,
+                   int64_t out_len) {
+  auto tbs = std::make_unique<fastinf::Tables>();
+  return fastinf::inflate_block(in, (size_t)in_len, out, (size_t)out_len,
+                                *tbs);
+}
 }  // extern "C"
 
 // ---------------------------------------------------------------------------

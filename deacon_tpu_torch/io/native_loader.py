@@ -14,10 +14,15 @@ wait, and the library appears under its name only when complete
 (``os.replace``). A failed build raises NativeBuildError with the
 compiler's output. Nothing here runs at import time.
 
+The host engine of ``--device host`` is bound here too: the probe table
+(NativeProbe) with its ``<index>.probe`` sidecar, the whole filter
+pipeline (native_filter_run), and the index build's accumulators
+(NativeRunAcc, NativeCountingSet).
+
 Thread contract: ctypes releases the GIL for every call. A reader or a
 writer handle is used by one thread at a time; distinct handles, and
 every stateless function (packing, codec, merges, extraction), may run
-concurrently.
+concurrently; so may queries of one NativeProbe.
 """
 
 from __future__ import annotations
@@ -148,6 +153,33 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dx_extract_batch": (i64, [
             vp, vp, vp, i64, i32, i32, i32, ctypes.c_float, vp, vp, vp, i64,
             i32]),
+        "dx_deflate_raw": (i64, [vp, i64, vp, i64]),
+        "dx_inflate_raw": (ctypes.c_int, [vp, i64, vp, i64]),
+        "dx_runacc_new": (vp, [i64]),
+        "dx_runacc_free": (None, [vp]),
+        "dx_runacc_add": (None, [vp, vp, i64]),
+        "dx_runacc_finish_write": (i64, [
+            vp, ctypes.c_char_p, i32, i32, i32, ctypes.c_char_p, i64, i32,
+            ctypes.c_char_p, i64]),
+        "dx_runacc_unique_count": (i64, [vp]),
+        "dx_runacc_export_sorted": (None, [vp, vp]),
+        "dx_cset_new": (vp, [i64]),
+        "dx_cset_free": (None, [vp]),
+        "dx_cset_size": (i64, [vp]),
+        "dx_cset_insert": (i64, [vp, vp, i64, i32]),
+        "dx_cset_export_sorted": (i64, [vp, vp, i32]),
+        "dx_probe_build": (vp, [vp, i64]),
+        "dx_probe_save": (ctypes.c_int, [vp, ctypes.c_char_p, i64, i64,
+                                         i64]),
+        "dx_probe_load": (vp, [ctypes.c_char_p, i64, i64, i64]),
+        "dx_probe_free": (None, [vp]),
+        "dx_probe_query": (None, [vp, vp, i64, vp]),
+        "dx_filter_run": (ctypes.c_int, [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, vp, i32, i32, i64, i64, ctypes.c_double, i32, i32,
+            i32, vp, ctypes.c_char_p, i64, i64, i64, i64, i64,
+            ctypes.c_char_p]),
     }
     for name, (res, args) in sig.items():
         fn = getattr(lib, name)
@@ -222,11 +254,15 @@ def gather(addrs: np.ndarray, lens: np.ndarray) -> np.ndarray:
 
 def extract_batch(arena: np.ndarray, starts: np.ndarray, lens: np.ndarray,
                   k: int, w: int, index_mode: bool,
-                  entropy_threshold: float = 0.0, n_threads: int = 0):
+                  entropy_threshold: float = 0.0, n_threads: int = 0,
+                  scratch: dict | None = None):
     """Minimizers of every sequence ``arena[starts[i]:starts[i] +
     lens[i]]``, bit-identical to the NumPy oracle (ops/minimizers_np;
     filter side, or index side with IUPAC canonicalisation and the
-    entropy filter). Returns (hashes u64, positions u32, counts i64)."""
+    entropy filter). Returns (hashes u64, positions u32, counts i64).
+    ``scratch``: a dict the caller keeps to reuse the output buffers
+    across calls (the results are then views of them, valid until the
+    next call with the same dict)."""
     arena = np.ascontiguousarray(arena, dtype=np.uint8)
     starts = np.ascontiguousarray(starts, dtype=np.int64)
     lens = np.ascontiguousarray(lens, dtype=np.int64)
@@ -239,8 +275,15 @@ def extract_batch(arena: np.ndarray, starts: np.ndarray, lens: np.ndarray,
     cap = max(1024, int(lens.sum()) * 2 // (w + 1) + 64 * n)
     lib = library()
     while True:
-        hashes = empty_huge(cap, np.uint64)
-        pos = empty_huge(cap, np.uint32)
+        if scratch is None:
+            hashes = empty_huge(cap, np.uint64)
+            pos = empty_huge(cap, np.uint32)
+        else:
+            if scratch.get("hashes") is None or scratch["hashes"].size < cap:
+                scratch["hashes"] = empty_huge(cap, np.uint64)
+                scratch["pos"] = empty_huge(cap, np.uint32)
+            hashes, pos = scratch["hashes"], scratch["pos"]
+            cap = hashes.size
         total = lib.dx_extract_batch(
             _ptr(arena), _ptr(starts), _ptr(lens), n, k, w,
             1 if index_mode else 0, ctypes.c_float(entropy_threshold),
@@ -541,3 +584,235 @@ class NativeWriter:
             self._h = None
             if rc != 0:
                 raise OSError("closing the output failed")
+
+
+# ---------------------------------------------------------------------------
+# The host engine: probe table and its sidecar, filter pipeline, index
+# build accumulators
+# ---------------------------------------------------------------------------
+
+class NativeProbe:
+    """Membership table over sorted unique u64 keys (dx_probe_*): one
+    linear-probing pass at build, about one cache line per query. The
+    table owns a copy of the keys, so the caller may free them. Built
+    from keys (``NativeProbe(keys)``) or mapped from a sidecar
+    (``load_sidecar``). Queries may run from any number of threads."""
+
+    def __init__(self, keys: np.ndarray):
+        self._lib = library()
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        self._h = self._lib.dx_probe_build(_ptr(keys), keys.size)
+        if not self._h:
+            raise MemoryError(
+                f"probe table build failed for {keys.size} keys")
+
+    @classmethod
+    def _wrap(cls, handle) -> "NativeProbe":
+        self = cls.__new__(cls)
+        self._lib = library()
+        self._h = handle
+        return self
+
+    def query(self, q: np.ndarray) -> np.ndarray:
+        """Whether each of ``q`` is a key (bool array)."""
+        q = np.ascontiguousarray(q, dtype=np.uint64)
+        out = np.empty(q.size, dtype=np.uint8)
+        self._lib.dx_probe_query(self._h, _ptr(q), q.size, _ptr(out))
+        return out.view(bool)
+
+    __call__ = query
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.dx_probe_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+def native_probe(keys: np.ndarray) -> NativeProbe:
+    """The probe table of sorted unique ``keys``."""
+    return NativeProbe(keys)
+
+
+def sidecar_path(index_path) -> str:
+    """Where the probe table of ``index_path`` is cached."""
+    return str(index_path) + ".probe"
+
+
+def _sidecar_identity(index_path) -> tuple[str, int, int]:
+    """(sidecar path, index size, index mtime_ns): a sidecar is valid only
+    for the index file with this size and mtime (and its key count)."""
+    st = os.stat(index_path)
+    return sidecar_path(index_path), int(st.st_size), int(st.st_mtime_ns)
+
+
+def load_probe_sidecar(index_path, key_count: int) -> NativeProbe | None:
+    """The table mapped read-only from ``<index>.probe``, or None when the
+    sidecar is missing, malformed or stale (written for an index file of
+    another key count, size or mtime). The JAX package writes and reads
+    the same format."""
+    path, size, mtime_ns = _sidecar_identity(index_path)
+    h = library().dx_probe_load(path.encode(), key_count, size, mtime_ns)
+    return NativeProbe._wrap(h) if h else None
+
+
+def save_probe_sidecar(probe: NativeProbe, index_path,
+                       key_count: int) -> bool:
+    """Write ``probe`` to ``<index>.probe`` (a temporary file, then a
+    rename); False when the file cannot be written."""
+    path, size, mtime_ns = _sidecar_identity(index_path)
+    return library().dx_probe_save(probe._h, path.encode(), key_count, size,
+                                   mtime_ns) == 0
+
+
+#: key count from which a built table is saved as a sidecar by default
+SIDECAR_MIN_KEYS = 4_000_000
+
+
+def sidecar_wanted(key_count: int) -> bool:
+    """The DEACON_PROBE_CACHE policy: 0 never saves, 1 always, unset (or
+    anything else) from SIDECAR_MIN_KEYS keys (a ~40 MB sidecar)."""
+    cache = os.environ.get("DEACON_PROBE_CACHE", "")
+    return cache != "0" and (cache == "1" or key_count >= SIDECAR_MIN_KEYS)
+
+
+def maybe_save_probe_sidecar(probe: NativeProbe, index_path,
+                             key_count: int) -> bool:
+    """Save the sidecar when the policy wants it (sidecar_wanted). True
+    when it was written, False when the policy declined; raises OSError
+    when a wanted sidecar cannot be written."""
+    if not sidecar_wanted(key_count):
+        return False
+    if not save_probe_sidecar(probe, index_path, key_count):
+        raise OSError(f"cannot write {sidecar_path(index_path)}")
+    return True
+
+
+#: progress slots of native_filter_run: six stats, then the cancel flag
+PROGRESS_SLOTS = 7
+CANCEL = 6
+
+
+def native_filter_run(input_path: str, input2_path: str | None,
+                      output_path: str, output2_path: str | None,
+                      out_codec: int, out2_codec: int, level: int,
+                      probe: NativeProbe, k: int, w: int,
+                      prefix_length: int, abs_threshold: int,
+                      rel_threshold: float, deplete: bool, rename: bool,
+                      n_threads: int, progress: np.ndarray) -> None:
+    """The host library's whole filter pipeline (dx_filter_run): a reader
+    thread, a pool of ``n_threads`` workers (0 = one per core) that
+    extract, probe and decide, and an ordered writer; workers compress
+    output members in parallel (BGZF for .gz at levels 1-3) unless
+    ``rename`` numbers records in writer order. ``input2_path`` == "-"
+    with ``input_path`` == "-" reads interleaved pairs from stdin.
+    ``progress`` is int64[PROGRESS_SLOTS]: total_seqs, filtered_seqs,
+    total_bp, output_bp, filtered_bp, output_seq_counter, updated per
+    batch (final values are the run's totals), and [CANCEL], which the
+    caller sets to stop the run with "Interrupted". The whole of each
+    input is read (the C entry's byte ranges are left at -1). Blocks, without the GIL, until the run ends; raises ValueError with
+    the pipeline's message when it fails."""
+    if progress.dtype != np.int64 or progress.size != PROGRESS_SLOTS \
+            or not progress.flags.c_contiguous:
+        raise ValueError("progress must be a contiguous int64[7] array")
+    err = ctypes.create_string_buffer(512)
+    rc = library().dx_filter_run(
+        os.fsencode(input_path),
+        None if input2_path is None else os.fsencode(input2_path),
+        os.fsencode(output_path),
+        None if output2_path is None else os.fsencode(output2_path),
+        out_codec, level, out2_codec, level, probe._h, k, w, prefix_length,
+        abs_threshold, rel_threshold, int(deplete), int(rename), n_threads,
+        _ptr(progress), err, len(err), -1, -1, -1, -1,
+        zstd.LIBRARY.encode())
+    if rc != 0:
+        raise ValueError(err.value.decode("utf-8", "replace")
+                         or "host filter pipeline failed")
+
+
+class NativeRunAcc:
+    """The quiet index build's accumulator (dx_runacc_*): raw hash batches
+    are bucketed by their top byte as they arrive; finish_write sorts and
+    deduplicates the 256 buckets in parallel while it streams the index
+    to disk."""
+
+    def __init__(self, capacity_hint: int = 0):
+        self._lib = library()
+        self._h = self._lib.dx_runacc_new(int(capacity_hint))
+        if not self._h:
+            raise MemoryError("dx_runacc_new failed")
+
+    def add(self, hashes: np.ndarray) -> None:
+        hashes = np.ascontiguousarray(hashes, dtype=np.uint64)
+        if hashes.size:
+            self._lib.dx_runacc_add(self._h, _ptr(hashes), hashes.size)
+
+    def finish_write(self, path: str, format_version: int, k: int, w: int,
+                     trailer: bytes, n_threads: int = 0) -> int | None:
+        """Write the index to ``path``; returns the distinct count, or None
+        (and no file) when the count has no 4-byte varint form (at most
+        0xFFFF keys, or more than 2^32): then export_sorted gives the
+        keys. Raises OSError."""
+        rc = self._lib.dx_runacc_finish_write(
+            self._h, os.fsencode(path), format_version, k, w, trailer,
+            len(trailer), _threads(n_threads), None, 0)
+        if rc == -1:
+            raise OSError(f"index write failed: {path}")
+        return None if rc == -2 else int(rc)
+
+    def export_sorted(self) -> np.ndarray:
+        """The sorted unique keys, after finish_write returned None."""
+        out = np.empty(int(self._lib.dx_runacc_unique_count(self._h)),
+                       dtype=np.uint64)
+        if out.size:
+            self._lib.dx_runacc_export_sorted(self._h, _ptr(out))
+        return out
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.dx_runacc_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+class NativeCountingSet:
+    """u64 set whose batch insert returns how many keys were new (the
+    reference's FxHashSet at index build, ref: src/index.rs:96-107,
+    266-284): 256 partitions by top byte, open addressing, threads on
+    disjoint partitions."""
+
+    def __init__(self, capacity_hint: int = 0):
+        self._lib = library()
+        self._h = self._lib.dx_cset_new(int(capacity_hint))
+        if not self._h:
+            raise MemoryError("dx_cset_new failed")
+
+    def insert(self, keys: np.ndarray, n_threads: int = 0) -> int:
+        """Add ``keys``; returns how many were not present before."""
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        if keys.size == 0:
+            return 0
+        return int(self._lib.dx_cset_insert(self._h, _ptr(keys), keys.size,
+                                            _threads(n_threads)))
+
+    def __len__(self) -> int:
+        return int(self._lib.dx_cset_size(self._h))
+
+    def export_sorted(self, n_threads: int = 0) -> np.ndarray:
+        """The keys, ascending."""
+        out = np.empty(len(self), dtype=np.uint64)
+        n = self._lib.dx_cset_export_sorted(self._h, _ptr(out),
+                                            _threads(n_threads))
+        return out[:n]
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.dx_cset_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()

@@ -10,8 +10,9 @@ Routes (the reference's surface, src/server.rs:48-58):
 
 Requests carry pre-hashed minimizers, so each request is one membership
 probe (ops/engine.DeviceHashProbe: the keys resident on ``device``,
-"cuda" by default or "cpu") and the host's threshold decisions
-(filter/backend.LocalBackend). stdlib ThreadingHTTPServer; body limit
+"cuda" by default or "cpu"; or, on "host", HostProbe: the host library's
+probe table, the JAX server's default) and the host's threshold
+decisions (filter/backend.LocalBackend). stdlib ThreadingHTTPServer; body limit
 2 GiB (ref: src/server.rs:58).
 
 ``--mesh DATAxSHARD`` keeps one value range of the keys on each shard's
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import sys
 import threading
 import time
@@ -40,9 +42,11 @@ from ..filter.engine import filter_mesh
 from ..index.store import (
     MinimizerIndex,
     load_header_and_count,
+    load_index,
     load_index_shard,
     warn_if_foreign_index,
 )
+from ..io import native_loader
 from ..ops.engine import DeviceHashProbe, ShardedHashProbe
 from ..parallel.multihost import (
     COLLECTIVE_TIMEOUT_S,
@@ -137,10 +141,48 @@ def probe_worker_loop(probe: PodProbe) -> None:
         probe._probe_all(probe.mesh.broadcast(np.zeros(size, np.int64)))
 
 
+class HostProbe:
+    """The probe of a ``--device host`` server, the JAX server's default:
+    the host library's table (io/native_loader.NativeProbe), mapped from
+    the ``<index>.probe`` sidecar when one is valid, else built from the
+    decoded keys, which are then dropped, and saved as the sidecar under
+    the DEACON_PROBE_CACHE policy. A table built here gets huge pages
+    when DEACON_PROBE_THP=1, which the ``server`` command sets."""
+
+    upload_s = 0.0
+
+    def __init__(self, index_path: str, count: int):
+        t = time.perf_counter()
+        self.table = native_loader.load_probe_sidecar(index_path, count)
+        self.source = "sidecar cache"
+        if self.table is None:
+            self.source = "built at startup"
+            self.table = native_loader.native_probe(
+                load_index(index_path).hashes)
+            try:
+                native_loader.maybe_save_probe_sidecar(self.table,
+                                                       index_path, count)
+            except OSError as e:
+                print(f"Warning: the probe table was not cached: {e}",
+                      file=sys.stderr)
+        self.load_s = time.perf_counter() - t
+        print(f"Engine: native C++ probe table ({self.source})",
+              file=sys.stderr)
+
+    def __call__(self, hashes: np.ndarray) -> np.ndarray:
+        return self.table.query(hashes)
+
+
 def _make_probe(index_path: str, device: str, mesh):
     """The server's probe for ``mesh`` (None, "pod", a DATAxSHARD spec or
     a parallel.sharded.Mesh); the spec and the devices are checked before
-    the index is read."""
+    the index is read. A mesh wins over ``device="host"`` and runs on the
+    cards, as in the JAX package."""
+    if mesh is not None and device == "host":
+        device = "cuda"
+    if mesh is None and device == "host":
+        return lambda: HostProbe(
+            index_path, load_header_and_count(index_path)[1])
     if mesh is None:
         return lambda: DeviceHashProbe.from_index_file(index_path, device)
     if mesh == "pod":

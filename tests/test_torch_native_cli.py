@@ -240,3 +240,33 @@ def test_client_on_compressed_input_matches_filter(data, monkeypatch, case,
         httpd.shutdown()
         httpd.server_close()
     assert outs["client"] == outs["filter"] and outs["client"]
+
+
+def test_client_device_is_accepted_and_ignored(data, capsys):
+    """``client ... --device cpu`` parses in both CLIs and is ignored (the
+    server decides); outputs equal the run without the flag."""
+    from deacon_tpu.cli import build_parser as jax_parser
+    from deacon_tpu_torch.cli import build_parser as torch_parser
+
+    argv = ["client", "127.0.0.1:1", "in.fq", "--device", "cpu"]
+    assert torch_parser().parse_args(argv).device == "cpu"
+    assert jax_parser().parse_args(argv).device == "cpu"
+    tmp = data["tmp"]
+    httpd = make_server(str(data["idx"]), 0, host="127.0.0.1", device="cpu")
+    try:
+        addr = _serve(httpd)
+        outs = {}
+        for tool, main in (("torch", torch_main), ("jax", jax_main)):
+            for flag in ([], ["--device", "cpu"]):
+                out = tmp / f"client_dev_{tool}_{len(flag)}.fq"
+                capsys.readouterr()
+                assert main(["client", addr, str(tmp / "s.fq"), "-o",
+                             str(out), "-a", "1", "-q", *flag]) == 0
+                if tool == "torch" and flag:
+                    assert "--device is ignored in client mode" \
+                        in capsys.readouterr().err
+                outs[tool, len(flag)] = out.read_bytes()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert len(set(outs.values())) == 1 and outs["torch", 2]

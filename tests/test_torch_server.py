@@ -403,3 +403,69 @@ def test_client_mesh_warns(srv, capsys):
                        str(tmp / "mesh_f.fq"), "-a", "1", "-q",
                        "--device", "cpu"]) == 0
     assert (tmp / "mesh_c.fq").read_bytes() == (tmp / "mesh_f.fq").read_bytes()
+
+
+@pytest.mark.parametrize("sidecar", [False, True])
+def test_host_server_matches_cpu_server(srv, tmp_path, monkeypatch, capsys,
+                                        sidecar):
+    """``server --device host`` (the JAX server's default host probe):
+    built from the keys, or mapped from the index's sidecar; its answers
+    on both wires equal the CPU-tensor server's."""
+    from deacon_tpu_torch.io import native_loader
+    from deacon_tpu_torch.server.app import HostProbe
+
+    idx = tmp_path / "ref.idx"
+    idx.write_bytes(srv["idx"].read_bytes())
+    monkeypatch.setenv("DEACON_PROBE_CACHE", "1" if sidecar else "0")
+    if sidecar:  # a first server writes it
+        first = make_server(str(idx), 0, host="127.0.0.1", device="host")
+        first.server_close()
+        assert (tmp_path / "ref.idx.probe").exists()
+    capsys.readouterr()
+    host = make_server(str(idx), 0, host="127.0.0.1", device="host")
+    assert isinstance(host.state.probe, HostProbe)
+    source = "sidecar cache" if sidecar else "built at startup"
+    assert f"Engine: native C++ probe table ({source})" \
+        in capsys.readouterr().err
+    assert (tmp_path / "ref.idx.probe").exists() == sidecar
+    try:
+        addr = _serve(host)
+        assert _get(addr + "/")[2] == _get(srv["port"] + "/")[2]
+        tmp = srv["tmp"]
+        for wire in ("binary", "json"):
+            monkeypatch.setenv("DEACON_WIRE", wire)
+            outs = []
+            for server in (addr, srv["port"]):
+                out = tmp / f"hostsrv_{sidecar}_{wire}_{len(outs)}.fq"
+                assert torch_main(["client", server, str(tmp / "r1.fq"),
+                                   str(tmp / "r2.fq"), "-o", str(out), "-a",
+                                   "1", "-q"]) == 0
+                outs.append(out.read_bytes())
+            assert outs[0] == outs[1] and outs[0]
+        q = np.concatenate([compute_minimizer_hashes(srv["genome"][:3000],
+                                                     31, 15),
+                            np.arange(1, 200, dtype=np.uint64)])
+        assert np.array_equal(host.state.probe(q),
+                              srv["state"].probe(q))
+        assert isinstance(host.state.probe.table, native_loader.NativeProbe)
+    finally:
+        host.shutdown()
+        host.server_close()
+
+
+def test_server_command_asks_for_huge_pages(monkeypatch):
+    """The ``server`` command (a long-lived process) sets
+    DEACON_PROBE_THP=1 unless the caller set it, as the JAX server does;
+    the probe classes leave the environment alone."""
+    import deacon_tpu_torch.server.app as app
+
+    seen = []
+    monkeypatch.setattr(app, "run_server", lambda *a, **kw: seen.append(
+        os.environ.get("DEACON_PROBE_THP")))
+    for preset, want in (("0", "0"), (None, "1")):  # setenv first: undone
+        if preset is None:
+            monkeypatch.delenv("DEACON_PROBE_THP", raising=False)
+        else:
+            monkeypatch.setenv("DEACON_PROBE_THP", preset)
+        assert torch_main(["server", "ref.idx", "--device", "host"]) == 0
+        assert seen[-1] == want
