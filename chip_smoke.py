@@ -199,7 +199,12 @@ a checkout of an earlier commit and run there, each times that commit's
 kernel (or route) by the same measures. ``python3 chip_smoke.py --pod4``
 needs four cards: it runs phases 0 and 1, then the pod modes with each
 rank on a card of its own, where the collectives run over nccl
-(pods_on_cards), then the single-process meshes over the four cards
+(pods_on_cards), then with two ranks of two cards each (pod single and
+paired, pod-2d with DEACON_POD_SHARDS=1, pod-data on a 2x1 and a 1x2
+local mesh, the pod index build, the pod server idle past its keep-alive
+period) and two ranks seeing all four cards (pods_on_card_pairs), each
+with its launches and peak memory per card, then the single-process
+meshes over the four cards
 (``filter --mesh 2x2`` and ``1x4``, single and paired, and ``server
 --mesh 1x4`` with ``client``, each against the one-card run, with each
 card's peak memory; meshes_on_cards), printing its numbers as the last
@@ -2677,15 +2682,19 @@ POD_RUN_LIMIT_S = 300
 
 
 def _pod_rank(queue, rank_env: dict, argv: list) -> None:
-    """One rank of a phase-18 run, in a spawned process: ``cli_main(argv)``
-    on cuda:0 with the rank's DEACON_* variables, the kernels' counters
-    set to 0 just before and read just after. Puts its exit code, seconds,
-    launches, the (row_lo, rows) blocks K2 ran on, the collectives'
-    backend, the card's peak GB, its load and pipeline-build seconds, the
-    seconds and count of its hits' all-reduces and its standard error's
-    tail on ``queue``."""
+    """One rank of a phase-18 or ``--pod4`` run, in a spawned process:
+    ``cli_main(argv)`` on the cards the rank sees (cuda:0 first) with the
+    rank's DEACON_* variables, the kernels' counters set to 0 just before
+    and read just after. Puts its exit code, seconds, launches (in all and
+    per visible card), the (row_lo, rows) blocks K2 ran on, the
+    collectives' backend, the shape and cards of each mesh it made, the
+    peak GB of cuda:0 and of each visible card, its load and
+    pipeline-build seconds, the seconds and count of its hits'
+    all-reduces, the pod server's keep-alive messages it sent or took,
+    and its standard error's tail on ``queue``."""
     from deacon_tpu_torch.filter import engine as fengine
     from deacon_tpu_torch.index import store
+    from deacon_tpu_torch.ops import engine as oengine
     from deacon_tpu_torch.ops import radix_probe as rp
     from deacon_tpu_torch.parallel import multihost
 
@@ -2694,6 +2703,18 @@ def _pod_rank(queue, rank_env: dict, argv: list) -> None:
     secs = {"load_s": 0.0, "pipeline_s": 0.0, "allreduce_s": 0.0}
     calls = {"allreduce_s": 0}
     blocks = set()
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    per_card = {n: [0] * n_cards for n in (*SELECT, "K2")}
+
+    def on_card(name, fn):
+        def run(pc, *a, **kw):
+            if pc.device.type == "cuda":
+                per_card[name][pc.device.index] += 1
+            return fn(pc, *a, **kw)
+        return run
+
+    for name, fn in SELECT.items():
+        setattr(oengine, fn.__name__, on_card(name, fn))
 
     def timed(fn, key):
         def run(*a, **kw):
@@ -2709,9 +2730,34 @@ def _pod_rank(queue, rank_env: dict, argv: list) -> None:
 
     def probe_hits(slots, spill, keys, srid, first, **kw):
         blocks.add((int(kw.get("row_lo", 0)), int(slots.shape[0])))
+        if keys.device.type == "cuda":
+            per_card["K2"][keys.device.index] += 1
         return probe(slots, spill, keys, srid, first, **kw)
 
     rp.probe_hits = probe_hits
+    meshes = []
+
+    def shape_of(make):
+        def run(*a, **kw):
+            m = make(*a, **kw)
+            meshes.append({**m.shape, "cards": [
+                [d.index for d in row] for row in m.devices]})
+            return m
+        return run
+
+    multihost._pod_mesh = shape_of(multihost._pod_mesh)
+    multihost.make_local_data_mesh = shape_of(
+        multihost.make_local_data_mesh)
+    beats = [0]
+    broadcast = multihost.PodMesh.broadcast
+
+    def counted_broadcast(self, arr):
+        got = broadcast(self, arr)
+        if got.size == 1 and int(got[0]) == -1:
+            beats[0] += 1
+        return got
+
+    multihost.PodMesh.broadcast = counted_broadcast
     store.load_index_range = timed(store.load_index_range, "load_s")
     fengine.load_index = timed(fengine.load_index, "load_s")
     fengine.make_decider = timed(fengine.make_decider, "pipeline_s")
@@ -2726,9 +2772,11 @@ def _pod_rank(queue, rank_env: dict, argv: list) -> None:
 
     multihost.collective_backend = collective_backend
     err = io.StringIO()
-    card = torch.cuda.is_available()
+    card = n_cards > 0
     if card:
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.init()  # the allocator's statistics exist from here
+    for i in range(n_cards):
+        torch.cuda.reset_peak_memory_stats(i)
     reset_launches()
     t = time.perf_counter()
     try:
@@ -2736,14 +2784,19 @@ def _pod_rank(queue, rank_env: dict, argv: list) -> None:
             rc = cli_main([str(a) for a in argv])
     except Exception as e:  # noqa: BLE001 - reported to the parent
         rc = f"{type(e).__name__}: {e}"
-    if card:
-        torch.cuda.synchronize()
+    for i in range(n_cards):
+        torch.cuda.synchronize(i)
     wall = time.perf_counter() - t
+    card_peak = [round(torch.cuda.max_memory_allocated(i) / 1e9, 3)
+                 for i in range(n_cards)]
     queue.put({"rank": rank, "rc": rc, "s": round(wall, 3),
                "launches": launch_counts(), "k2_blocks": sorted(blocks),
                "backend": backends[-1] if backends else None,
-               "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)
-               if card else None,
+               "peak_gb": card_peak[0] if card else None,
+               "card_peak_gb": card_peak,
+               "card_launches": {n: v for n, v in per_card.items()
+                                 if any(v)},
+               "meshes": meshes, "heartbeats": beats[0],
                **{n: round(v, 3) for n, v in secs.items()},
                "allreduces": calls["allreduce_s"],
                "stderr": err.getvalue()[-1500:]})
@@ -2758,14 +2811,14 @@ def _free_port() -> int:
 
 
 def pod_ranks(n: int, argv, env=None, coord: bool = True,
-              during=None) -> list:
+              during=None, limit: float = POD_RUN_LIMIT_S) -> list:
     """Run ``n`` ranks of one command (``argv``, or ``argv(rank)``) in
     spawned processes of this script (the rank's DEACON_* variables and
     ``env``, or ``env(rank)``, in each process's environment from its
     start; DEACON_COORD a free local port unless ``coord`` is false), call
     ``during()`` while they run (for a server: rank 0 gets SIGINT after
     it), and return the ranks' reports by rank. Raises if a rank exits
-    non-zero or the ranks outlast POD_RUN_LIMIT_S; kills them then."""
+    non-zero or the ranks outlast ``limit`` seconds; kills them then."""
     import multiprocessing as mp
     import queue as queue_mod
     import signal
@@ -2791,7 +2844,7 @@ def pod_ranks(n: int, argv, env=None, coord: bool = True,
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-    deadline = time.perf_counter() + POD_RUN_LIMIT_S
+    deadline = time.perf_counter() + limit
     reports = {}
     try:
         if during is not None:
@@ -2803,7 +2856,7 @@ def pod_ranks(n: int, argv, env=None, coord: bool = True,
             left = deadline - time.perf_counter()
             if left <= 0:
                 raise AssertionError(f"phase 18: {args[:2]} ranks outlasted "
-                                     f"{POD_RUN_LIMIT_S} s")
+                                     f"{limit} s")
             try:
                 got = q.get(timeout=min(left, 5.0))
             except queue_mod.Empty:
@@ -2858,7 +2911,9 @@ def pod_record(label: str, reports: list, n_bp: int, filter_ranks=True,
     return {"mbp_per_s": round(n_bp / 1e6 / wall, 3) if n_bp else None,
             "ranks": [{n: x[n] for n in (
                 "s", "load_s", "pipeline_s", "allreduce_s", "allreduces",
-                "peak_gb", "backend", "launches", "k2_blocks")}
+                "peak_gb", "backend", "launches", "k2_blocks",
+                *(("card_peak_gb", "card_launches", "meshes")
+                  if len(x["card_peak_gb"]) > 1 else ()))}
                 for x in reports]}
 
 
@@ -3022,9 +3077,10 @@ def pods_on_cards(rng) -> dict:
     groups of two), ``--mesh pod-data`` and ``server --mesh pod`` answered
     by ``client``. Every output byte-identical to the one-process run,
     K1 and K2 launched in every filter rank, K2 on exactly each pod rank's
-    block, nccl chosen in every pod rank. Then, in this process, which
-    sees the four cards, the single-process meshes over them
-    (meshes_on_cards)."""
+    block, nccl chosen in every pod rank. Then the pod modes with two
+    ranks of two cards each, and two ranks that see all four cards
+    (pods_on_card_pairs); then, in this process, which sees the four
+    cards, the single-process meshes over them (meshes_on_cards)."""
     from deacon_tpu_torch.ops.radix_probe import choose_p
 
     cards = torch.cuda.device_count()
@@ -3112,14 +3168,231 @@ def pods_on_cards(rng) -> dict:
         if runs["server pod 4 ranks"]["backends"] != ["nccl"] * 4:
             raise AssertionError(f"server pod on four cards: "
                                  f"{runs['server pod 4 ranks']['backends']}")
-        runs.update(meshes_on_cards(idx, tmp, {"single": [fq],
-                                               "paired": [r1, r2]},
-                                    refs, {"single": n_bp,
-                                           "paired": paired_bp}))
+        inputs = {"single": [fq], "paired": [r1, r2]}
+        bps = {"single": n_bp, "paired": paired_bp}
+        runs.update(pods_on_card_pairs(rng, idx, tmp, inputs, refs, bps, p))
+        runs.update(meshes_on_cards(idx, tmp, inputs, refs, bps))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("pod4 the pod modes on four cards", t0, mbp=n_bp / 1e6,
         runs=json.dumps(runs))
+    return runs
+
+
+def pods_on_card_pairs(rng, idx: str, tmp: str, inputs: dict, refs: dict,
+                       bp: dict, p: int) -> dict:
+    """``--pod4``'s ranks that drive two cards each, the JAX pod modes'
+    own shape (one process per host over all of its chips): rank 0 sees
+    cards 0 and 1 (CUDA_VISIBLE_DEVICES=0,1), rank 1 cards 2 and 3.
+
+    * ``filter --mesh pod``, single and paired: each rank's mesh has two
+      data rows and its collectives run over nccl; K1 and K2 launch on
+      both of its cards, K2 on the rank's block of rows only;
+    * ``--mesh pod-2d`` with DEACON_POD_SHARDS=1 (two groups of one rank,
+      the whole table on each of a rank's two data rows);
+    * ``--mesh pod-data`` with DEACON_POD_ENGINE=sharded (a 2x1 local
+      mesh: the table whole on both cards) and DEACON_POD_LOCAL_MESH=1x2
+      (the table cut over the two cards);
+    * ``index build --mesh pod-data`` against the one-process build;
+    * ``server --mesh pod`` answered by ``client``, single and paired,
+      then idle for longer than HEARTBEAT_S and answered again (the
+      keep-alive over nccl); the cards PodProbe holds memory on;
+    * the README's launch lines uncut (no CUDA_VISIBLE_DEVICES, each
+      rank seeing the four cards): two ranks of ``filter --mesh pod``,
+      of ``--mesh pod-data`` and of ``server --mesh pod`` with
+      ``client``.
+
+    Every output byte-identical to the one-process run on card 0
+    (``refs``; the build against ``cli_index_build`` on card 0). Per
+    run: Mbp/s, each rank's mesh, backend, launches per card, peak GB
+    per card and its all-reduces' share of its seconds."""
+    from deacon_tpu_torch.server.app import HEARTBEAT_S
+
+    runs = {}
+
+    def pair(r):
+        return {"CUDA_VISIBLE_DEVICES": f"{2 * r},{2 * r + 1}"}
+
+    def check(label, reports, mesh, cards, **launched):
+        """Each rank made ``mesh`` (data, shard) over its local cards
+        ``cards`` and launched each kernel of ``launched`` on exactly the
+        cards listed there, each of which held memory."""
+        for x in reports:
+            if any(x["card_peak_gb"][i] <= 0 for i in
+                   {i for on in launched.values() for i in on}):
+                raise AssertionError(f"{label} rank {x['rank']}: peak GB "
+                                     f"{x['card_peak_gb']}")
+            got = [(m["data"], m["shard"], m["cards"]) for m in x["meshes"]]
+            if mesh is not None and got != [(*mesh, cards)]:
+                raise AssertionError(f"{label} rank {x['rank']}: meshes "
+                                     f"{x['meshes']}, not {mesh} on {cards}")
+            for kernel, want in launched.items():
+                on = [i for i, n in enumerate(
+                    x["card_launches"].get(kernel, ())) if n > 0]
+                if on != want:
+                    raise AssertionError(
+                        f"{label} rank {x['rank']}: {kernel} launched on "
+                        f"cards {on}, not {want}: {x['card_launches']}")
+
+    def keep(label, rec, reports):
+        for r, x in zip(rec["ranks"], reports):
+            r["allreduce_share"] = round(x["allreduce_s"] / x["s"], 4)
+            r["heartbeats"] = x["heartbeats"]
+        runs[label] = rec
+        print(f"[pod4] {label}: {json.dumps(rec)}", flush=True)
+
+    both = [[0], [1]]
+    for name, paths in inputs.items():
+        outs = [os.path.join(tmp, f"pair_pod_{name}{r}.fq") for r in range(2)]
+
+        def argv(r, paths=paths, outs=outs, name=name):
+            extra = ["-O", outs[r] + ".2"] if name == "paired" else []
+            return ["filter", idx, *paths, "-o", outs[r], *extra,
+                    "--device", "cuda", "--mesh", "pod"]
+
+        reports = pod_ranks(2, argv, env=pair)
+        for o in outs:
+            same_bytes(o, refs[name][0], f"--mesh pod, 2 cards a rank, {name}")
+            if name == "paired":
+                same_bytes(o + ".2", refs[name][1],
+                           "--mesh pod, 2 cards a rank, paired -O")
+        label = f"pod 2 ranks x 2 cards {name}"
+        check(label, reports, (2, 2), both, K1=[0, 1], K2=[0, 1])
+        keep(label, pod_record(label, reports, bp[name], backend="nccl",
+                               blocks=lambda r: pod_block(r, 2, p)), reports)
+    o = os.path.join(tmp, "pair_p2d.fq")
+    reports = pod_ranks(2, ["filter", idx, *inputs["single"], "-o", o,
+                            "--device", "cuda", "--mesh", "pod-2d"],
+                        env=lambda r: {**pair(r), "DEACON_POD_SHARDS": "1"})
+    same_bytes(o, refs["single"][0], "--mesh pod-2d, 2 cards a rank")
+    label = "pod-2d 2 groups of 1 rank x 2 cards"
+    check(label, reports, (2, 1), both, K1=[0, 1], K2=[0, 1])
+    keep(label, pod_record(label, reports, bp["single"], backend="nccl",
+                           blocks=lambda r: pod_block(0, 1, p)), reports)
+    for label, env, mesh, cards, k1 in (
+            ("pod-data 2 ranks, local mesh 2x1",
+             {"DEACON_POD_ENGINE": "sharded"}, (2, 1), both, [0, 1]),
+            ("pod-data 2 ranks, local mesh 1x2",
+             {"DEACON_POD_LOCAL_MESH": "1x2"}, (1, 2), [[0, 1]], [0])):
+        o = os.path.join(tmp, f"pair_pd_{mesh[0]}x{mesh[1]}.fq")
+        reports = pod_ranks(2, ["filter", idx, *inputs["single"], "-o", o,
+                                "--device", "cuda", "--mesh", "pod-data"],
+                            env=lambda r, env=env: {**pair(r), **env},
+                            coord=False)
+        same_bytes(o, refs["single"][0], label)
+        check(label, reports, mesh, cards, K1=k1, K2=[0, 1])
+        keep(label, pod_record(label, reports, bp["single"]), reports)
+    fa = os.path.join(tmp, "pair_build.fa")
+    recs = dirty_records(rng, 5, SCALE_RECORD_BP, SCALE_RECORD_BP + 1)
+    write_fasta(fa, recs)
+    ref_idx = os.path.join(tmp, "pair_build_ref.idx")
+    t = time.perf_counter()
+    cli_index_build(fa, ref_idx, K_, W_, "cuda")
+    one_s = time.perf_counter() - t
+    o = os.path.join(tmp, "pair_build.idx")
+    reports = pod_ranks(2, ["index", "build", fa, "-o", o, "-q", "--device",
+                            "cuda", "--mesh", "pod-data"], env=pair,
+                        coord=False)
+    same_bytes(o, read_bytes(ref_idx), "index build --mesh pod-data, "
+                                       "2 cards a rank")
+    label = "index build pod-data 2 ranks x 2 cards"
+    check(label, reports, None, None, K1=[0])
+    rec = pod_record(label, reports, sum(len(x) for _, x in recs),
+                     filter_ranks=False)
+    rec["one_process_s"] = round(one_s, 3)
+    keep(label, rec, reports)
+
+    def held(reports):
+        """The cards on which each rank held memory."""
+        return [[i for i, g in enumerate(x["card_peak_gb"]) if g > 0]
+                for x in reports]
+
+    url = f"http://127.0.0.1:{_free_port()}"
+    idle_s = HEARTBEAT_S + 15
+    client = {}
+
+    def ask(label, name):
+        o = os.path.join(tmp, f"pair_client_{len(client)}.fq")
+        extra = ["-O", o + ".2"] if name == "paired" else []
+        wall, _ = cli_timed(["client", url, *inputs[name], "-o", o, *extra,
+                             "-q"])
+        what = f"client of server --mesh pod, 2 cards a rank ({label})"
+        same_bytes(o, refs[name][0], what)
+        if extra:
+            same_bytes(o + ".2", refs[name][1], what + " -O")
+        client[f"{label} mbp_per_s"] = round(bp[name] / 1e6 / wall, 3)
+
+    def serve_and_ask():
+        wait_http(url)
+        ask("single", "single")
+        ask("paired", "paired")
+        time.sleep(idle_s)
+        ask("single after idle", "single")
+
+    reports = pod_ranks(2, ["server", idx, "-p", url.rsplit(":", 1)[1],
+                            "--host", "127.0.0.1", "--device", "cuda",
+                            "--mesh", "pod"], env=pair, during=serve_and_ask,
+                        limit=POD_RUN_LIMIT_S + idle_s)
+    label = "server pod 2 ranks x 2 cards"
+    check(label, reports, (2, 2), both)
+    if [x["backend"] for x in reports] != ["nccl"] * 2:
+        raise AssertionError(f"{label}: backends "
+                             f"{[x['backend'] for x in reports]}")
+    if any(x["heartbeats"] < 1 for x in reports):
+        raise AssertionError(f"{label}: no keep-alive in the idle gap: "
+                             f"{[x['heartbeats'] for x in reports]}")
+    rec = pod_record(label, reports, 0, filter_ranks=False)
+    rec.update({"client": client, "idle_s": idle_s,
+                "heartbeat_s": HEARTBEAT_S,
+                "probe_cards": held(reports)})
+    keep(label, rec, reports)
+
+    def uncut(*args, **kwargs):
+        """pod_ranks with no CUDA_VISIBLE_DEVICES in the ranks (this
+        process's cards are fixed since its first CUDA call)."""
+        visible = os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        try:
+            return pod_ranks(*args, **kwargs)
+        finally:
+            if visible is not None:
+                os.environ["CUDA_VISIBLE_DEVICES"] = visible
+
+    every = [[0], [1], [2], [3]]
+    outs = [os.path.join(tmp, f"uncut_pod{r}.fq") for r in range(2)]
+    reports = uncut(2, lambda r: ["filter", idx, *inputs["single"], "-o",
+                                  outs[r], "--device", "cuda", "--mesh",
+                                  "pod"])
+    for o in outs:
+        same_bytes(o, refs["single"][0], "--mesh pod, every card a rank")
+    label = "uncut pod 2 ranks, 4 cards each"
+    check(label, reports, (4, 2), every, K1=[0, 1, 2, 3], K2=[0, 1, 2, 3])
+    keep(label, pod_record(label, reports, bp["single"], backend="gloo",
+                           blocks=lambda r: pod_block(r, 2, p)), reports)
+    o = os.path.join(tmp, "uncut_pd.fq")
+    reports = uncut(2, ["filter", idx, *inputs["single"], "-o", o,
+                        "--device", "cuda", "--mesh", "pod-data"],
+                    coord=False)
+    same_bytes(o, refs["single"][0], "--mesh pod-data, every card a rank")
+    label = "uncut pod-data 2 ranks"
+    check(label, reports, None, None, K1=[0], K2=[0])
+    keep(label, pod_record(label, reports, bp["single"]), reports)
+    url = f"http://127.0.0.1:{_free_port()}"
+
+    def ask():
+        wait_http(url)
+        o = os.path.join(tmp, "uncut_client.fq")
+        cli_timed(["client", url, *inputs["single"], "-o", o, "-q"])
+        same_bytes(o, refs["single"][0], "client of the uncut pod server")
+
+    reports = uncut(2, ["server", idx, "-p", url.rsplit(":", 1)[1],
+                        "--host", "127.0.0.1", "--device", "cuda", "--mesh",
+                        "pod"], during=ask)
+    label = "uncut server pod 2 ranks"
+    check(label, reports, (4, 2), every)
+    rec = pod_record(label, reports, 0, filter_ranks=False)
+    rec["probe_cards"] = held(reports)
+    rec["backends"] = [x["backend"] for x in reports]
+    keep(label, rec, reports)
     return runs
 
 
@@ -3709,6 +3982,206 @@ def phase8_index_scale(rng) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# --sanitize: K1-K5 under compute-sanitizer, in a driver with no torch
+# ---------------------------------------------------------------------------
+
+SANITIZE_TOOLS = ("memcheck", "racecheck", "initcheck", "synccheck")
+SANITIZE_LIMIT_S = 900
+CHECK_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "deacon_tpu_torch", "csrc", "check",
+                            "kernel_check.cu")
+#: kernel ids of the driver's case file (csrc/check/kernel_check.cu)
+CHECK_IDS = {"K1": 1, "K2": 2, "K3": 3, "K4": 4, "K5": 5}
+PLAIN = {"K1": K.select_compact_plain, "K3": K.values_select_compact_plain,
+         "K4": K.select_csum_slots_plain,
+         "K5": K.values_argmin_slots_plain}
+
+
+def write_cases(path: str, cases: list) -> None:
+    """The driver's case file: (name, kernel, params, arrays) each."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", 0x4B435844, 1, len(cases)))
+        for name, kernel, params, arrays in cases:
+            f.write(name.encode().ljust(32, b"\0")[:32])
+            f.write(struct.pack("<i8qI", CHECK_IDS[kernel],
+                                *(list(params) + [0] * (8 - len(params))),
+                                len(arrays)))
+            for a in arrays:
+                b = b"" if a is None else np.ascontiguousarray(a).tobytes()
+                f.write(struct.pack("<q", len(b)))
+                f.write(b)
+
+
+def select_cases(rng) -> list:
+    """K1, K3, K4 and K5 at the three default tiles (k = 31 for K1, K4,
+    K5; 41 for K3) and an edge tile each (13 rows, not a multiple of 8,
+    L = 256 with Br = 128 so that low-complexity rows pass their budget,
+    pc and pv 8 bytes past a 16-byte boundary; k = 41 for K3 and K5),
+    seeded, with their plain versions' outputs."""
+    cases = []
+    for name in ("K1", "K3", "K4", "K5"):
+        k = K_WIDE if name == "K3" else K_
+        tiles = [(k, L, R, v4_row_budget(L, W_, default_budget_frac(W_)), 0)
+                 for L, R in DevicePipeline.DEFAULT_TILES]
+        tiles.append((K_WIDE if name in ("K3", "K5") else K_, 256, 13, 128,
+                      8))
+        for k, L, R, Br, misalign in tiles:
+            arrs = pack_rows_packed(tile_rows(rng, L, R, k, W_), R, L, k,
+                                    k + W_ - 1)[:4]
+            dev = [torch.from_numpy(a).to("cuda") for a in arrs]
+            out = PLAIN[name](*dev, k=k, w=W_, Br=Br)
+            pos, tot = out[0], out[-1]
+            lo, hi = out[1], out[2] if len(out) == 4 else None
+            cases.append((f"{name} L={L} R={R} k={k}", name,
+                          (R, L, k, W_, Br, misalign),
+                          [*arrs, *(x.to(torch.int32).cpu().numpy()
+                                    for x in (tot, pos)),
+                           *(None if x is None else
+                             x.to(torch.int64).cpu().numpy()
+                             for x in (lo, hi))]))
+    return cases
+
+
+def probe_cases(rng) -> list:
+    """K2 on a seeded 2**14-key table with 180 keys crafted into one
+    bucket (a spill table), whole and as block 1 of 3 (its rows straddle
+    row 2**(p-1) and hold the crafted bucket), the block also with the
+    table and spill 8 bytes past a 16-byte boundary; the stream of 512
+    reads of 128 slots, half members, the largest crafted key planted 8
+    times in read 0; hits from probe_hits_plain."""
+    from deacon_tpu_torch.ops.radix_probe import choose_p, shard_rows
+
+    n = 1 << 14
+    keys = rng.integers(I64_MIN, (1 << 63) - 1, n, dtype=np.int64)
+    p = choose_p(n)
+    r0, r1 = shard_rows(1, 3, p)
+    bucket = (r0 + r1) // 2
+    crafted = ((np.uint64(bucket) << np.uint64(64 - p))
+               | rng.integers(0, 1 << (64 - p), 180, dtype=np.uint64)
+               ).view(np.int64)
+    every = torch.from_numpy(np.concatenate([keys, crafted]))
+    whole = build_radix_table(every)
+    block = build_radix_shards(every, 3, ["cpu"] * 3)[1]
+    if whole.sp == 0 or block.p != p or block.row_lo != r0:
+        raise AssertionError(f"--sanitize: K2 case table p={block.p}, "
+                             f"sp={whole.sp}, row_lo={block.row_lo}")
+    R, Br = 512, 128
+    q = R * Br
+    member = torch.from_numpy(keys[rng.integers(0, n, q)])
+    other = torch.from_numpy(rng.integers(I64_MIN, (1 << 63) - 1, q,
+                                          dtype=np.int64))
+    hashes = torch.where(torch.from_numpy(rng.random(q) < 0.5), member,
+                         other).reshape(R, Br)
+    hashes[0, :8] = int(np.sort(crafted)[-1])
+    valid = torch.from_numpy(rng.random((R, Br)) < 0.67)
+    valid[0, :8] = True
+    rid = torch.arange(R, dtype=torch.int32)[:, None].expand(R, Br)
+    key, srid, first = prep_sorted(hashes, valid, rid)
+    cases = []
+    for name, t, misalign in (("K2 whole", whole, 0),
+                              ("K2 block 1 of 3", block, 0),
+                              ("K2 block, table+8", block, 8)):
+        hits = K.probe_hits_plain(t.slots, t.spill, key, srid, first, p=t.p,
+                                  sp=t.sp, num_segments=R, row_lo=t.row_lo)
+        cases.append((name, "K2", (q, t.row_lo, t.slots.shape[0], t.p,
+                                   t.sp, R, misalign),
+                      [key.numpy(), srid.numpy(), first.numpy(),
+                       t.slots.numpy(), t.spill.numpy() if t.sp else None,
+                       hits.numpy()]))
+    return cases
+
+
+def compute_sanitizer() -> str:
+    found = shutil.which("compute-sanitizer")
+    cands = [found] if found else []
+    cands.append("/usr/local/cuda/bin/compute-sanitizer")
+    for c in cands:
+        if os.path.isfile(c):
+            return c
+    raise AssertionError("--sanitize: compute-sanitizer not found")
+
+
+def sanitize(rng) -> int:
+    """``python3 chip_smoke.py --sanitize``: builds csrc/check/kernel_check.cu
+    with nvcc for sm_90a into _build/kernel_check (linked to the kernel
+    library), writes its seeded cases (select_cases, probe_cases) to a
+    temporary file, runs it once plainly (every output must equal its
+    plain version's) and then under compute-sanitizer with each of
+    SANITIZE_TOOLS. Prints one JSON line per run and the summary as the
+    last line. Exit code 0 when every tool ran the cases and reported no
+    error; 1 when the plain run failed or a tool that ran the cases
+    reported an error; 3 when a tool could not run them (it refused the
+    device, or the driver's CUDA calls failed under it before any case):
+    a fault of the tool, not of the kernels."""
+    import re
+
+    t0 = time.perf_counter()
+    binary = os.path.join(str(_build.BUILD_DIR), "kernel_check")
+    cmd = [_build._nvcc(), "-std=c++17", "-O2", "-gencode",
+           "arch=compute_90a,code=sm_90a", CHECK_SOURCE, "-o", binary,
+           "-L", str(_build.BUILD_DIR), "-ldeacon_kernels", "-Xlinker",
+           "-rpath,$ORIGIN"]
+    built = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if built.returncode != 0:
+        raise AssertionError(f"--sanitize: nvcc failed: {built.stdout}"
+                             f"{built.stderr}")
+    nvcc_s = round(time.perf_counter() - t0, 3)
+    tool = compute_sanitizer()
+    version = subprocess.run([tool, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+    tmp = tempfile.mkdtemp(prefix="deacon_torch_sanitize_")
+    runs = {}
+    try:
+        cases = select_cases(rng) + probe_cases(rng)
+        path = os.path.join(tmp, "cases.bin")
+        write_cases(path, cases)
+        for name, argv in (("plain", []), *(
+                (t, [tool, "--tool", t, "--error-exitcode", "86"])
+                for t in SANITIZE_TOOLS)):
+            t = time.perf_counter()
+            got = subprocess.run([*argv, binary, path], capture_output=True,
+                                 text=True, timeout=SANITIZE_LIMIT_S)
+            out = got.stdout + got.stderr
+            summary = re.findall(r"ERROR SUMMARY: (\d+) error", out)
+            hazards = re.findall(r"\((\d+) errors?, (\d+) warnings?\)", out)
+            told = [ln.split("Error:", 1)[1].strip()
+                    for ln in out.splitlines()
+                    if ln.startswith("========= Error:")]
+            run = {"rc": got.returncode, "s": round(time.perf_counter() - t, 3),
+                   # the tool ran the cases: it took the device and the
+                   # driver reported on at least one case
+                   "started": "Device not supported" not in out and (
+                       out.count(": ok (") + out.count(": FAILED (")) > 0,
+                   "cases_ok": out.count(": ok ("),
+                   "errors": (int(summary[-1]) if summary else
+                              int(hazards[-1][0]) if hazards else None),
+                   "tool_error": told[0] if told else None,
+                   "tail": out.strip().splitlines()[-12:]}
+            runs[name] = run
+            print(f"[sanitize] {name}: {json.dumps(run)}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    plain = runs["plain"]
+    tools = [runs[t] for t in SANITIZE_TOOLS]
+    verdict = ("kernel fault" if plain["rc"] != 0
+               or plain["cases_ok"] != len(cases)
+               or any(r["started"] and (r["rc"] != 0 or r["errors"])
+                      for r in tools)
+               else "tool fault" if not all(r["started"] for r in tools)
+               else "clean")
+    print(json.dumps({"sanitize": verdict, "cases": len(cases),
+                      "compute_sanitizer": version, "nvcc_s": nvcc_s,
+                      "s": round(time.perf_counter() - t0, 3),
+                      "runs": {n: {m: r[m] for m in (
+                          "rc", "s", "started", "errors", "cases_ok",
+                          "tool_error")}
+                               for n, r in runs.items()}}), flush=True)
+    return {"clean": 0, "kernel fault": 1, "tool fault": 3}[verdict]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3758,6 +4231,8 @@ def main() -> int:
     if sys.argv[1:] == ["--pod4"]:
         print(json.dumps(pods_on_cards(rng)), flush=True)
         return 0
+    if sys.argv[1:] == ["--sanitize"]:
+        return sanitize(rng)
     if sys.argv[1:] == ["--k1"]:
         t0 = time.perf_counter()
         k1 = k1_tiles(rng)

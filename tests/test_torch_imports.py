@@ -48,3 +48,15 @@ def test_chip_smoke_fails_without_a_card():
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_modes_fail_without_a_card():
+    """Every mode of chip_smoke.py exits non-zero with no result line
+    where no card is present."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    for mode in ("--sanitize", "--pod4"):
+        proc = subprocess.run([sys.executable, "chip_smoke.py", mode],
+                              capture_output=True, text=True, cwd=REPO,
+                              env=env, timeout=300)
+        assert proc.returncode != 0, mode
+        assert '"ok"' not in proc.stdout and "sanitize" not in proc.stdout

@@ -10,6 +10,12 @@ the pod modes rendezvous over gloo on localhost.
   package's one-process ``filter`` output (search and deplete, single
   and paired); with ``--debug``, each rank's DEBUG lines are the JAX
   package's.
+* ``filter --mesh pod`` with two data rows a rank (a PodMesh of the CPU
+  twice, the shape of a rank that drives two cards): single, paired and
+  long reads that rerun over their slot budget, search and deplete;
+  batches alternate over the rows alike in both ranks.
+* ``make_pod_mesh``'s rule on faked cards: rows = the fewest cards of a
+  group member, nccl only for distinct cards, one group per rank group.
 * ``filter --mesh pod-data``, two ranks: single and paired, a plain and a
   BGZF input; the merged output (and -O output) is the JAX package's;
   one rank with DEACON_POD_LOCAL_MESH=1x3, in process.
@@ -19,6 +25,9 @@ the pod modes rendezvous over gloo on localhost.
 * ``server --mesh pod``, two ranks, answering the port's ``client``: the
   client's output is the port's ``filter``; both ranks exit 0 after the
   server is interrupted.
+* ``server --mesh pod`` with two data rows a rank, idle for longer than
+  the process group's timeout (cut to seconds) and answering again: the
+  keep-alive.
 * ``server --mesh 1x2`` on ["cpu"] * 2 through the library.
 * The errors, with the JAX CLI's messages and exit code 1: pod-2d without
   DEACON_POD_SHARDS, paired BGZF in pod-data, --rename in pod-data, pod
@@ -74,9 +83,66 @@ def _env(extra):
     return env
 
 
-def _spawn(args, env):
+#: a rank's command line whose pod mesh has two data rows of the CPU, the
+#: shape of a rank that drives two cards (the CLI gives a CPU rank one
+#: row): ``make_pod_mesh`` is replaced after the rendezvous, and the rank
+#: prints the data row of every batch launch and its reruns. With
+#: ``--heartbeat TIMEOUT BEAT`` first, the process group's timeout and the
+#: pod server's keep-alive period are set to those seconds.
+_TWO_ROWS = """
+import sys
+
+import torch
+
+from deacon_tpu_torch.cli import main
+from deacon_tpu_torch.ops.engine import DevicePipeline
+from deacon_tpu_torch.parallel import multihost, sharded
+from deacon_tpu_torch.server import app
+
+cpu = torch.device("cpu")
+
+
+def two_rows(device="cuda"):
+    assert multihost.maybe_init_distributed()
+    nproc, rank = multihost.world()
+    return multihost.PodMesh(((cpu,), (cpu,)), n_shard=nproc, shard=rank,
+                             backend="gloo")
+
+
+turns, reruns = [], [0]
+launch = sharded.ShardedPipeline._launch_batch
+rerun = DevicePipeline._rerun_over_budget
+
+
+def spy_launch(self, *a):
+    turns.append(self._turn % self.n_data)
+    return launch(self, *a)
+
+
+def spy_rerun(self, *a):
+    reruns[0] += 1
+    return rerun(self, *a)
+
+
+multihost.make_pod_mesh = app.make_pod_mesh = two_rows
+sharded.ShardedPipeline._launch_batch = spy_launch
+DevicePipeline._rerun_over_budget = spy_rerun
+argv = sys.argv[1:]
+if argv[0] == "--heartbeat":
+    multihost.COLLECTIVE_TIMEOUT_S = float(argv[1])
+    app.HEARTBEAT_S = float(argv[2])
+    argv = argv[3:]
+rc = main(argv)
+print(f"two rows: turns {''.join(map(str, turns))} reruns {reruns[0]}",
+      file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _spawn(args, env, two_rows=False):
+    entry = ["-c", _TWO_ROWS] if two_rows else ["-m", "deacon_tpu_torch"]
     return subprocess.Popen(
-        [sys.executable, "-m", "deacon_tpu_torch", *map(str, args)],
+        [sys.executable, *entry, *map(str, args)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, cwd=REPO,
         env=_env(env))
 
@@ -98,15 +164,16 @@ def _wait_all(procs, limit=LIMIT_S):
     return [p.returncode for p in procs], outs
 
 
-def _ranks(n, args, extra=None, coord=True, args_of=None):
-    """Run ``n`` ranks of one command; returns (return codes, stderrs)."""
+def _ranks(n, args, extra=None, coord=True, args_of=None, two_rows=False):
+    """Run ``n`` ranks of one command (each with two data rows:
+    ``two_rows``); returns (return codes, stderrs)."""
     port = _free_port()
     procs = []
     for r in range(n):
         env = {"DEACON_NUM_PROC": n, "DEACON_PROC_ID": r, **(extra or {})}
         if coord:
             env["DEACON_COORD"] = f"127.0.0.1:{port}"
-        procs.append(_spawn(args_of(r) if args_of else args, env))
+        procs.append(_spawn(args_of(r) if args_of else args, env, two_rows))
     return _wait_all(procs)
 
 
@@ -149,6 +216,13 @@ def data(tmp_path_factory):
                            enumerate(pairs)])
     _fastq(tmp / "r2.fq", [(b"p%d/2" % i, b) for i, (_, b) in
                            enumerate(pairs)])
+    # ONT-like long reads, some with poly-A or dinucleotide stretches whose
+    # rows select more minimizers than their slot budget: an on-card rerun
+    ont = [read(int(rng.integers(2000, 9000))) for _ in range(10)]
+    ont[2] = ont[2][:1500] + b"A" * 4000 + ont[2][1500:]
+    ont[6] = b"AC" * 700 + ont[6][:500]
+    ont[8] = b"T" * 1500
+    _fastq(tmp / "ont.fq", [(b"ont%d" % i, r) for i, r in enumerate(ont)])
     return tmp
 
 
@@ -186,6 +260,52 @@ def test_filter_pod_two_ranks_match_jax(data, inputs, flags):
         if len(inputs) == 2:
             assert (data / f"{name}.{r}_2.fq").read_bytes() == want[1]
     assert want[0]
+
+
+#: small tiles, so that a few hundred reads make many batches for the
+#: data rows to take in turn (decisions do not depend on the tiles)
+_SMALL_TILES = "256:64,2048:16,16384:4"
+
+
+@pytest.mark.parametrize("inputs,flags", [
+    (["s.fq"], []), (["ont.fq"], []), (["ont.fq"], ["-d"]),
+    (["r1.fq", "r2.fq"], ["-a", "1"]), (["r1.fq", "r2.fq"], ["-d"])])
+def test_filter_pod_two_data_rows_a_rank_match_jax(data, inputs, flags):
+    """Two ranks of ``--mesh pod`` whose meshes hold two data rows each
+    (a process driving several devices, as the JAX pod mesh puts every
+    chip of a host on its data axis): batches alternate over the rows,
+    each batch's hits are all-reduced over the ranks, and each rank's
+    output is the JAX package's one-process ``filter``, byte for byte.
+    Both ranks take the same row for every batch, reruns included
+    (ont.fq's low-complexity rows exceed their slot budget)."""
+    name = f"rows_{inputs[0][:-3]}{len(inputs)}_{len(flags)}"
+    want = _jax_filter(data, inputs, flags, name)
+
+    def args_of(r):
+        argv = ["filter", data / "ref.idx", *[data / i for i in inputs],
+                "-o", data / f"{name}.{r}.fq", *flags, "--device", "cpu",
+                "--mesh", "pod"]
+        if len(inputs) == 2:
+            argv += ["-O", data / f"{name}.{r}_2.fq"]
+        return argv
+
+    rcs, errs = _ranks(2, None, args_of=args_of, two_rows=True,
+                       extra={"DEACON_TPU_TILES": _SMALL_TILES})
+    assert rcs == [0, 0], errs
+    spies = []
+    for r in range(2):
+        assert "Engine: sharded device pipeline (mesh data=2 x shard=2; " \
+               "collectives over gloo)" in errs[r]
+        assert (data / f"{name}.{r}.fq").read_bytes() == want[0]
+        if len(inputs) == 2:
+            assert (data / f"{name}.{r}_2.fq").read_bytes() == want[1]
+        spies.append([ln for ln in errs[r].splitlines()
+                      if ln.startswith("two rows: ")][-1].split())
+    assert spies[0] == spies[1]
+    turns, reruns = spies[0][3], int(spies[0][5])
+    assert set(turns) == {"0", "1"} and len(turns) >= 4
+    assert (reruns >= 2) == (inputs == ["ont.fq"])
+    assert want[0] or flags == ["-d"]
 
 
 @pytest.mark.parametrize("inputs", [["s.fq"], ["s.fq.gz"],
@@ -270,6 +390,45 @@ def test_index_build_pod_data_matches_jax(data):
     assert "mode: build (pod-data, 2 rank(s))" in errs[0]
 
 
+@pytest.mark.parametrize("every,members,rank,shape,backend,groups", [
+    # uneven card counts: every rank gets as many rows as the fewest
+    ([["a", "b", "c"], ["d"]], [0, 1], 0, (1, 2), "nccl", [[0, 1]]),
+    ([["a", "b"], ["c", "d"]], [0, 1], 1, (2, 2), "nccl", [[0, 1]]),
+    # ranks that see the same cards (no CUDA_VISIBLE_DEVICES cut)
+    ([["a", "b", "c", "d"]] * 2, [0, 1], 0, (4, 2), "gloo", []),
+    # pod-2d groups of one rank each, two cards a rank
+    ([["a", "b"], ["c", "d"]], [1], 1, (2, 1), "nccl", [[0], [1]]),
+    ([["a", "b"], ["c", "d"], ["e"], ["f", "g"]], [2, 3], 3, (1, 2),
+     "nccl", [[0, 1], [2, 3]]),
+    ([["cpu"], ["cpu"]], [0, 1], 0, (1, 2), "gloo", []),
+])
+def test_pod_mesh_rows_and_backend(monkeypatch, every, members, rank,
+                                   shape, backend, groups):
+    """The per-rank rule of make_pod_mesh and make_pod2d_group_mesh, as
+    in the JAX package (deacon_tpu/parallel/multihost.py:76, :138): data
+    rows = the fewest cards of a group member, nccl only when every
+    rank's cards are distinct cards, one communicator per group in the
+    same order on every rank (the cards faked: no card here)."""
+    import torch
+
+    from deacon_tpu_torch.parallel import multihost
+
+    made = []
+    monkeypatch.setattr(multihost, "_gather_devices", lambda devs: every)
+    monkeypatch.setattr(multihost.dist, "new_group",
+                        lambda ranks, backend: made.append(
+                            (ranks, backend)) or f"group{ranks}")
+    on_cpu = every[rank] == ["cpu"]
+    devices = ([torch.device("cpu")] if on_cpu else
+               [torch.device("cuda", i) for i in range(len(every[rank]))])
+    mesh = multihost._pod_mesh(devices, members, rank)
+    assert (mesh.shape["data"], mesh.shape["shard"]) == shape
+    assert mesh.devices == tuple((d,) for d in devices[:shape[0]])
+    assert mesh.backend == backend and mesh.shard == members.index(rank)
+    assert made == [(g, backend) for g in groups]
+    assert mesh.group == (f"group{members}" if groups else None)
+
+
 def _wait_http(url, procs, limit=LIMIT_S):
     deadline = time.monotonic() + limit
     while time.monotonic() < deadline:
@@ -307,6 +466,39 @@ def test_server_pod_two_ranks_answers_client(data, capsys):
     assert rcs == [0, 0], errs
     assert "Pod worker rank 1: mirroring rank 0 probes" in errs[1]
     assert "Index sharded on pod mesh data=1 x shard=2" in errs[0]
+
+
+def test_server_pod_keep_alive_two_data_rows(data):
+    """``server --mesh pod`` on two ranks with two data rows each, left
+    idle for longer than the process group's timeout: rank 0's keep-alive
+    (a size of -1 every HEARTBEAT_S) keeps the worker's wait short, and
+    the next ``client`` is answered exactly (the JAX package's
+    one-process ``filter``). The timeout and the period are cut to 8 s
+    and 1 s from 600 s and 150 s; both ranks exit 0 after SIGINT."""
+    want = _jax_filter(data, ["s.fq"], [], "alive")
+    coord, http = _free_port(), _free_port()
+    procs = [_spawn(["--heartbeat", 8, 1, "server", data / "ref.idx", "-p",
+                     http, "--host", "127.0.0.1", "--device", "cpu",
+                     "--mesh", "pod"],
+                    {"DEACON_COORD": f"127.0.0.1:{coord}",
+                     "DEACON_NUM_PROC": 2, "DEACON_PROC_ID": r},
+                    two_rows=True)
+             for r in range(2)]
+    try:
+        assert _wait_http(f"http://127.0.0.1:{http}/", procs)
+        for i in range(2):
+            if i:
+                time.sleep(10)
+            out = data / f"alive{i}.fq"
+            assert torch_main(["client", f"http://127.0.0.1:{http}",
+                               str(data / "s.fq"), "-o", str(out),
+                               "-q"]) == 0
+            assert out.read_bytes() == want[0]
+    finally:
+        procs[0].send_signal(signal.SIGINT)
+        rcs, errs = _wait_all(procs)
+    assert rcs == [0, 0], errs
+    assert "Index sharded on pod mesh data=2 x shard=2" in errs[0]
 
 
 def test_server_mesh_1x2_through_library(data):
