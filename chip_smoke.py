@@ -2680,13 +2680,21 @@ def phase20_device_rule(idx: str, tmp: str, refs: dict) -> dict:
 #: seconds a phase-18 run's ranks may take together before they are killed
 POD_RUN_LIMIT_S = 300
 
+#: the client's Mbp/s against ``server --mesh pod`` on two ranks of two
+#: cards each when PodProbe held a rank's range on its first card only
+#: (single, paired, single after 165 s idle; four NVIDIA H100 80GB HBM3 at
+#: 700.00 W), printed beside this run's
+FIRST_CARD_ONLY_CLIENT_MBP = {"single": 5.691, "paired": 9.766,
+                              "single after idle": 12.922}
+
 
 def _pod_rank(queue, rank_env: dict, argv: list) -> None:
     """One rank of a phase-18 or ``--pod4`` run, in a spawned process:
     ``cli_main(argv)`` on the cards the rank sees (cuda:0 first) with the
     rank's DEACON_* variables, the kernels' counters set to 0 just before
     and read just after. Puts its exit code, seconds, launches (in all and
-    per visible card), the (row_lo, rows) blocks K2 ran on, the
+    per visible card, with the server probe's searches as "search"), the
+    (row_lo, rows) blocks K2 ran on, the
     collectives' backend, the shape and cards of each mesh it made, the
     peak GB of cuda:0 and of each visible card, its load and
     pipeline-build seconds, the seconds and count of its hits'
@@ -2704,7 +2712,7 @@ def _pod_rank(queue, rank_env: dict, argv: list) -> None:
     calls = {"allreduce_s": 0}
     blocks = set()
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    per_card = {n: [0] * n_cards for n in (*SELECT, "K2")}
+    per_card = {n: [0] * n_cards for n in (*SELECT, "K2", "search")}
 
     def on_card(name, fn):
         def run(pc, *a, **kw):
@@ -2735,6 +2743,14 @@ def _pod_rank(queue, rank_env: dict, argv: list) -> None:
         return probe(slots, spill, keys, srid, first, **kw)
 
     rp.probe_hits = probe_hits
+    launch = oengine.DeviceHashProbe.launch
+
+    def search(self, hashes):
+        if len(hashes) and len(self) and self.device.type == "cuda":
+            per_card["search"][self.device.index] += 1
+        return launch(self, hashes)
+
+    oengine.DeviceHashProbe.launch = search
     meshes = []
 
     def shape_of(make):
@@ -3196,7 +3212,12 @@ def pods_on_card_pairs(rng, idx: str, tmp: str, inputs: dict, refs: dict,
     * ``index build --mesh pod-data`` against the one-process build;
     * ``server --mesh pod`` answered by ``client``, single and paired,
       then idle for longer than HEARTBEAT_S and answered again (the
-      keep-alive over nccl); the cards PodProbe holds memory on;
+      keep-alive over nccl); both cards of each rank hold the rank's
+      value range (card 1's peak GB within 10% of card 0's) and search
+      their parts of the queries; GB and searches per card, the client's
+      Mbp/s beside those of the probe on a rank's first card only;
+    * ``server --mesh pod`` on ranks of unequal cards (cards 0,1 and
+      card 2): data=1 in both ranks, card 0 alone searching, exact;
     * the README's launch lines uncut (no CUDA_VISIBLE_DEVICES, each
       rank seeing the four cards): two ranks of ``filter --mesh pod``,
       of ``--mesh pod-data`` and of ``server --mesh pod`` with
@@ -3329,22 +3350,61 @@ def pods_on_card_pairs(rng, idx: str, tmp: str, inputs: dict, refs: dict,
         time.sleep(idle_s)
         ask("single after idle", "single")
 
-    reports = pod_ranks(2, ["server", idx, "-p", url.rsplit(":", 1)[1],
-                            "--host", "127.0.0.1", "--device", "cuda",
-                            "--mesh", "pod"], env=pair, during=serve_and_ask,
+    def server_argv(url):
+        return ["server", idx, "-p", url.rsplit(":", 1)[1], "--host",
+                "127.0.0.1", "--device", "cuda", "--mesh", "pod"]
+
+    def nccl(label, reports):
+        if [x["backend"] for x in reports] != ["nccl"] * 2:
+            raise AssertionError(f"{label}: backends "
+                                 f"{[x['backend'] for x in reports]}")
+
+    def per_card(reports):
+        return [{"gb": x["card_peak_gb"],
+                 "searches": x["card_launches"].get("search")}
+                for x in reports]
+
+    reports = pod_ranks(2, server_argv(url), env=pair,
+                        during=serve_and_ask,
                         limit=POD_RUN_LIMIT_S + idle_s)
     label = "server pod 2 ranks x 2 cards"
-    check(label, reports, (2, 2), both)
-    if [x["backend"] for x in reports] != ["nccl"] * 2:
-        raise AssertionError(f"{label}: backends "
-                             f"{[x['backend'] for x in reports]}")
+    check(label, reports, (2, 2), both, search=[0, 1])
+    nccl(label, reports)
+    for x in reports:
+        gb = x["card_peak_gb"]
+        if not (gb[1] > 0 and abs(gb[1] - gb[0]) <= 0.1 * gb[0]):
+            raise AssertionError(f"{label} rank {x['rank']}: card 1 does "
+                                 f"not hold the rank's range: GB {gb}")
     if any(x["heartbeats"] < 1 for x in reports):
         raise AssertionError(f"{label}: no keep-alive in the idle gap: "
                              f"{[x['heartbeats'] for x in reports]}")
     rec = pod_record(label, reports, 0, filter_ranks=False)
     rec.update({"client": client, "idle_s": idle_s,
                 "heartbeat_s": HEARTBEAT_S,
-                "probe_cards": held(reports)})
+                "probe_cards": held(reports), "per_card": per_card(reports),
+                "client_first_card_only": FIRST_CARD_ONLY_CLIENT_MBP})
+    keep(label, rec, reports)
+    url = f"http://127.0.0.1:{_free_port()}"
+    unequal = {}
+
+    def ask_unequal():
+        wait_http(url)
+        o = os.path.join(tmp, "unequal_client.fq")
+        wall, _ = cli_timed(["client", url, *inputs["single"], "-o", o,
+                             "-q"])
+        same_bytes(o, refs["single"][0], "client of server --mesh pod on "
+                                         "ranks of 2 cards and 1")
+        unequal["single mbp_per_s"] = round(bp["single"] / 1e6 / wall, 3)
+
+    reports = pod_ranks(2, server_argv(url), during=ask_unequal,
+                        env=lambda r: {"CUDA_VISIBLE_DEVICES": "0,1"
+                                       if r == 0 else "2"})
+    label = "server pod ranks of 2 cards and 1"
+    check(label, reports, (1, 2), [[0]], search=[0])
+    nccl(label, reports)
+    rec = pod_record(label, reports, 0, filter_ranks=False)
+    rec.update({"client": unequal, "probe_cards": held(reports),
+                "per_card": per_card(reports)})
     keep(label, rec, reports)
 
     def uncut(*args, **kwargs):
@@ -3388,7 +3448,7 @@ def pods_on_card_pairs(rng, idx: str, tmp: str, inputs: dict, refs: dict,
                         "--host", "127.0.0.1", "--device", "cuda", "--mesh",
                         "pod"], during=ask)
     label = "uncut server pod 2 ranks"
-    check(label, reports, (4, 2), every)
+    check(label, reports, (4, 2), every, search=[0, 1, 2, 3])
     rec = pod_record(label, reports, 0, filter_ranks=False)
     rec["probe_cards"] = held(reports)
     rec["backends"] = [x["backend"] for x in reports]

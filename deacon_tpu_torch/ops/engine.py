@@ -49,7 +49,9 @@ extraction and clears the first index's keys it hits (KeptKeys).
 DeviceHashProbe holds an index's sorted keys on the device for the
 server: each request's pre-hashed minimizers are one searchsorted probe.
 ShardedHashProbe holds one value range of them on each shard of a mesh
-(``server --mesh DATAxSHARD``).
+(``server --mesh DATAxSHARD``); probe_rows searches a query over such a
+layout, one part a data row, every part launched before any is
+collected (it also serves the pod server's rows, server/app.PodProbe).
 """
 
 from __future__ import annotations
@@ -792,24 +794,58 @@ class DeviceHashProbe:
         keys must not be empty)."""
         return find_flipped(self.flipped, q)[1]
 
-    def __call__(self, hashes: np.ndarray) -> np.ndarray:
+    def launch(self, hashes: np.ndarray):
+        """Start the search of u64 ``hashes``: uploads them and enqueues
+        the search with this probe's card made current, and returns the
+        pending bits for ``collect``. An empty search launches nothing and
+        returns its (empty or all-false) answer."""
         q = np.ascontiguousarray(hashes, dtype=np.uint64)
         if q.size == 0 or len(self) == 0:
             return np.zeros(q.size, dtype=bool)
         t = torch.from_numpy(q.view(np.int64))
-        if self.device.type == "cuda":
+        if self.device.type != "cuda":
+            return self.member(t ^ _I64_MIN)
+        with torch.cuda.device(self.device):
             t = t.pin_memory().to(self.device, non_blocking=True)
-        return self.member(t ^ _I64_MIN).cpu().numpy()
+            return self.member(t ^ _I64_MIN)
+
+    @staticmethod
+    def collect(bits) -> np.ndarray:
+        """The bits of a ``launch``, on the host (waits for them)."""
+        return bits if isinstance(bits, np.ndarray) else bits.cpu().numpy()
+
+    def __call__(self, hashes: np.ndarray) -> np.ndarray:
+        return self.collect(self.launch(hashes))
+
+
+def probe_rows(rows, hashes: np.ndarray) -> np.ndarray:
+    """Membership of u64 ``hashes`` over the probes of a (data x shard)
+    layout, ``rows[i]`` the probes of data row i (disjoint value ranges,
+    so a key is in one of them at most): the hashes are cut into one
+    contiguous part per row (np.array_split) and each part is searched
+    by every probe of its row. Every search is launched before any is
+    collected, so the rows' cards work at once; the bits come back in
+    the hashes' order."""
+    parts = np.array_split(np.ascontiguousarray(hashes, dtype=np.uint64),
+                           len(rows))
+    launched = [[p.launch(part) for p in row]
+                for row, part in zip(rows, parts)]
+    out = []
+    for part, pending in zip(parts, launched):
+        bits = np.zeros(part.size, dtype=bool)
+        for b in pending:
+            bits |= DeviceHashProbe.collect(b)
+        out.append(bits)
+    return np.concatenate(out)
 
 
 class ShardedHashProbe:
     """DeviceHashProbe over a (data x shard) mesh (parallel/sharded.Mesh):
     shard j holds the keys of value range j of the index file
     (store.load_index_shard) on the devices of mesh column j, one copy
-    per device; a call cuts the queries into one contiguous part per data
-    row, probes each part against every shard on its row's devices, and
-    ORs the bits (the ranges are disjoint, so a key is in one shard at
-    most). Thread-safe as DeviceHashProbe is."""
+    per device; a call searches its queries over the rows (probe_rows:
+    one contiguous part per data row, against every shard on the row's
+    devices). Thread-safe as DeviceHashProbe is."""
 
     def __init__(self, index_path: str, mesh):
         from ..index.store import load_index_shard
@@ -834,15 +870,9 @@ class ShardedHashProbe:
         return sum(p.nbytes for p in self.probes.values())
 
     def __call__(self, hashes: np.ndarray) -> np.ndarray:
-        q = np.ascontiguousarray(hashes, dtype=np.uint64)
-        parts = np.array_split(q, len(self.mesh.devices))
-        out = []
-        for row, part in zip(self.mesh.devices, parts):
-            bits = np.zeros(part.size, dtype=bool)
-            for j, dev in enumerate(row):
-                bits |= self.probes[(dev, j)](part)
-            out.append(bits)
-        return np.concatenate(out)
+        rows = [[self.probes[(dev, j)] for j, dev in enumerate(row)]
+                for row in self.mesh.devices]
+        return probe_rows(rows, hashes)
 
 
 class KeptKeys:

@@ -17,10 +17,13 @@ decisions (filter/backend.LocalBackend). stdlib ThreadingHTTPServer; body limit
 
 ``--mesh DATAxSHARD`` keeps one value range of the keys on each shard's
 card (ops/engine.ShardedHashProbe). ``--mesh pod`` spans processes
-(parallel/multihost.py): every rank holds one value range on its card;
-rank 0 serves HTTP and, under a lock, broadcasts each request's query
-size and then its hashes to the other ranks (PodProbe), every rank
-searches its range, and the bits are reduced back; the other ranks run
+(parallel/multihost.py): every rank holds one value range on each of
+its cards (its pod mesh's data rows); rank 0 serves HTTP and, under a
+lock, broadcasts each request's query size and then its hashes to the
+other ranks (PodProbe), every rank cuts the query into one part a card
+and searches its range on each card, and the bits are reduced back (one
+all-reduce a query, as the JAX pod server splits a query over a
+process's chips and reduces over ranks); the other ranks run
 probe_worker_loop until a size of zero (the server's close) or a failed
 collective (rank 0 gone: the process group's timeout).
 """
@@ -47,7 +50,7 @@ from ..index.store import (
     warn_if_foreign_index,
 )
 from ..io import native_loader
-from ..ops.engine import DeviceHashProbe, ShardedHashProbe
+from ..ops.engine import DeviceHashProbe, ShardedHashProbe, probe_rows
 from ..parallel.multihost import (
     COLLECTIVE_TIMEOUT_S,
     make_pod_mesh,
@@ -74,33 +77,39 @@ HEARTBEAT_S = COLLECTIVE_TIMEOUT_S / 4
 
 class PodProbe:
     """The probe of a ``--mesh pod`` server. Rank j holds value range j of
-    the index's keys (of the pod mesh's n_shard ranges) on its card. On
-    rank 0 a call broadcasts the query's size, then its hashes, to every
-    rank, searches its own range, and sums the bits of all ranks (the
-    ranges are disjoint). Serialised by a lock: broadcasts of two HTTP
-    threads must not interleave. While the server is idle, a thread sends
-    a size of -1 every HEARTBEAT_S, so idle workers do not time out."""
+    the index's keys (of the pod mesh's n_shard ranges) on each of its
+    cards, one copy a data row, decoded once. On rank 0 a call broadcasts
+    the query's size, then its hashes, to every rank; every rank cuts the
+    query into one part a card, searches its range (ops/engine.probe_rows)
+    and sums its bits with all ranks' (the ranges are disjoint).
+    Serialised by a lock: broadcasts of two HTTP threads must not
+    interleave. While the server is idle, a thread sends a size of -1
+    every HEARTBEAT_S, so idle workers do not time out."""
 
     def __init__(self, index_path: str, mesh):
         self.mesh = mesh
         t = time.perf_counter()
         _, keys, _ = load_index_shard(index_path, mesh.shard, mesh.n_shard)
         self.load_s = time.perf_counter() - t
-        self.local = DeviceHashProbe(keys, mesh.devices[0][0])
-        self.upload_s = self.local.upload_s
+        self.probes = [DeviceHashProbe(keys, row[0]) for row in mesh.devices]
+        self.upload_s = sum(p.upload_s for p in self.probes)
         del keys
+        held = ", ".join(f"{p.device} {p.nbytes / 1e9:.3f} GB"
+                         for p in self.probes)
+        print(f"Pod rank {mesh.shard} holds value range {mesh.shard} of "
+              f"{mesh.n_shard} on each card: {held}", file=sys.stderr)
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._beat = None
 
     @property
     def nbytes(self) -> int:
-        return self.local.nbytes
+        return sum(p.nbytes for p in self.probes)
 
     def _probe_all(self, q: np.ndarray) -> np.ndarray:
         """Every rank: its range's bits of ``q``, summed over the ranks."""
-        mine = self.local(q.view(np.uint64)).astype(np.int64)
-        return self.mesh.sum_over_shards(mine) > 0
+        mine = probe_rows([[p] for p in self.probes], q.view(np.uint64))
+        return self.mesh.sum_over_shards(mine.astype(np.int64)) > 0
 
     def __call__(self, hashes: np.ndarray) -> np.ndarray:
         q = np.ascontiguousarray(hashes, dtype=np.uint64).view(np.int64)

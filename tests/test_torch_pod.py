@@ -83,20 +83,16 @@ def _env(extra):
     return env
 
 
-#: a rank's command line whose pod mesh has two data rows of the CPU, the
-#: shape of a rank that drives two cards (the CLI gives a CPU rank one
-#: row): ``make_pod_mesh`` is replaced after the rendezvous, and the rank
-#: prints the data row of every batch launch and its reruns. With
-#: ``--heartbeat TIMEOUT BEAT`` first, the process group's timeout and the
-#: pod server's keep-alive period are set to those seconds.
-_TWO_ROWS = """
+#: the start of a rank's script whose pod mesh has two data rows of the
+#: CPU, the shape of a rank that drives two cards (the CLI gives a CPU
+#: rank one row): ``make_pod_mesh`` is replaced by ``two_rows``, which
+#: makes that mesh after the rendezvous
+_TWO_ROWS_MESH = """
 import sys
 
 import torch
 
-from deacon_tpu_torch.cli import main
-from deacon_tpu_torch.ops.engine import DevicePipeline
-from deacon_tpu_torch.parallel import multihost, sharded
+from deacon_tpu_torch.parallel import multihost
 from deacon_tpu_torch.server import app
 
 cpu = torch.device("cpu")
@@ -108,6 +104,18 @@ def two_rows(device="cuda"):
     return multihost.PodMesh(((cpu,), (cpu,)), n_shard=nproc, shard=rank,
                              backend="gloo")
 
+
+multihost.make_pod_mesh = app.make_pod_mesh = two_rows
+"""
+
+#: a rank's command line on a pod mesh of two data rows (_TWO_ROWS_MESH);
+#: the rank prints the data row of every batch launch and its reruns.
+#: With ``--heartbeat TIMEOUT BEAT`` first, the process group's timeout
+#: and the pod server's keep-alive period are set to those seconds.
+_TWO_ROWS = _TWO_ROWS_MESH + """
+from deacon_tpu_torch.cli import main
+from deacon_tpu_torch.ops.engine import DevicePipeline
+from deacon_tpu_torch.parallel import sharded
 
 turns, reruns = [], [0]
 launch = sharded.ShardedPipeline._launch_batch
@@ -124,7 +132,6 @@ def spy_rerun(self, *a):
     return rerun(self, *a)
 
 
-multihost.make_pod_mesh = app.make_pod_mesh = two_rows
 sharded.ShardedPipeline._launch_batch = spy_launch
 DevicePipeline._rerun_over_budget = spy_rerun
 argv = sys.argv[1:]
