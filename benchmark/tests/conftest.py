@@ -1,0 +1,10 @@
+"""The benchmark's tests import it as the package ``benchmark`` from the
+repository's root."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
