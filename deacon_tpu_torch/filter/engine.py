@@ -62,6 +62,7 @@ from ..ops import host_extract
 from ..ops.engine import DevicePipeline
 from ..parallel.sharded import ShardedPipeline, make_mesh, parse_mesh_spec
 from ..server.client import RemoteBackend
+from ..utils import trace
 from .backend import LocalBackend
 from .progress import FilterStats, Spinner
 from .summary import build_summary, write_summary
@@ -177,10 +178,11 @@ class RemoteDecider(HostDecider):
 
 def _decisions_from_counts(hits, totals, cfg: FilterConfig) -> Decisions:
     """Vectorized decisions from counts."""
-    keep = keep_mask_batch(
-        hits, totals, cfg.abs_threshold, cfg.rel_threshold, cfg.deplete
-    )
-    return Decisions(np.asarray(keep, dtype=bool), hits, totals)
+    with trace.span("resolve.decide"):
+        keep = keep_mask_batch(
+            hits, totals, cfg.abs_threshold, cfg.rel_threshold, cfg.deplete
+        )
+        return Decisions(np.asarray(keep, dtype=bool), hits, totals)
 
 
 class DeviceDecider:
@@ -456,18 +458,19 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
         first = stats.output_seq_counter + 1
         stats.output_seq_counter += kept.size * per
         numbers = np.arange(first, first + kept.size * per, dtype=np.int64)
-        if not paired:
-            writer.write(format_batch(batch, kept,
-                                      numbers if config.rename else None))
-        elif writer2 is not None:
-            for w, mate in ((writer, 0), (writer2, 1)):
-                w.write(format_batch(batch, 2 * kept + mate,
-                                     numbers[mate::2] if config.rename
-                                     else None))
-        else:
-            idx = np.stack([2 * kept, 2 * kept + 1], axis=1).reshape(-1)
-            writer.write(format_batch(batch, idx,
-                                      numbers if config.rename else None))
+        with trace.span("writer"):
+            if not paired:
+                writer.write(format_batch(batch, kept,
+                                          numbers if config.rename else None))
+            elif writer2 is not None:
+                for w, mate in ((writer, 0), (writer2, 1)):
+                    w.write(format_batch(batch, 2 * kept + mate,
+                                         numbers[mate::2] if config.rename
+                                         else None))
+            else:
+                idx = np.stack([2 * kept, 2 * kept + 1], axis=1).reshape(-1)
+                writer.write(format_batch(batch, idx,
+                                          numbers if config.rename else None))
         spinner.update(stats, filtering_start)
 
     # up to `depth` launched batches stay in flight (their outputs then
@@ -479,11 +482,13 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
         pending_bytes = 0
         batches = _read_batches(config, input_type, _byte_range)
         while True:
-            batch = next(batches, None)
+            with trace.span("reader"):
+                batch = next(batches, None)
             if batch is not None:
-                fut = decider.launch(batch.arena, batch.seq_starts,
-                                     batch.seq_lens, paired,
-                                     config.prefix_length, config)
+                with trace.span("launch"):
+                    fut = decider.launch(batch.arena, batch.seq_starts,
+                                         batch.seq_lens, paired,
+                                         config.prefix_length, config)
                 nb = int(batch.seq_lens.sum())
                 pending.append((batch, fut, nb))
                 pending_bytes += nb
@@ -493,15 +498,20 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
             ):
                 done, fut, nb = pending.popleft()
                 pending_bytes -= nb
-                process(done, fut())
+                with trace.span("resolve"):
+                    d = fut()
+                process(done, d)
             if batch is None:
                 break
     finally:
         spinner.finish()
 
-    writer.finish()
-    if writer2 is not None:
-        writer2.finish()
+    with trace.span("writer"):
+        writer.finish()
+        if writer2 is not None:
+            writer2.finish()
+    if trace.enabled():
+        trace.report()
     if _return_stats:
         return stats, k, w
     _finish_run(config, stats, start_time, quiet, tool_version,
@@ -692,7 +702,9 @@ def _read_batches(config: FilterConfig, input_type: str, byte_range=None):
             b2 = r2.read_batch(len(b1))
             n = len(b2)
             if n:
-                yield RecordBatch.interleave(b1.head(n), b2)
+                with trace.span("reader.assemble"):
+                    batch = RecordBatch.interleave(b1.head(n), b2)
+                yield batch
             if n < len(b1):
                 return
 

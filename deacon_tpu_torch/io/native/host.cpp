@@ -17,7 +17,8 @@
 // Environment read here, with the JAX package's meanings: DEACON_THP and
 // DEACON_PROBE_THP (huge-page advice), DEACON_CHUNK_PARSE and
 // DEACON_CHUNK_BYTES (the pipeline's chunk-parallel reader),
-// DEACON_NATIVE_PROFILE (its per-stage times on stderr). The pipeline's
+// DEACON_NATIVE_PROFILE (its per-stage times on stderr; DEACON_TRACE=1
+// turns them on too). The pipeline's
 // .gz output is always BGZF from fastdef at levels 1-3, zlib above.
 //
 // Codec libraries: zlib is linked (-lz). zstd, xz and bzip2 are bound at
@@ -66,6 +67,27 @@
 namespace {
 
 constexpr size_t kBufSize = 1 << 20;
+
+static inline int64_t now_ns() {  // wall clock: stall (wait) counters
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+
+static inline int64_t now_cpu_ns() {  // this thread's CPU time: compute
+  struct timespec ts;                 // stages (immune to steal/preemption)
+  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
+  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+
+// Handle counters (dx_reader_stats, dx_writer_stats): a caller hands a
+// reader or a writer an int64 array, and the handle adds to its slots
+// from then on; with none (the default) each counted section costs one
+// branch. A slot is written by one thread (the decode-ahead thread or the
+// handle's user) and read once the handle is closed.
+enum ReaderStat { kDecodeBusyNs, kDecodeFullWaitNs, kDecodeBytes,
+                  kReaderEmptyWaitNs };
+enum WriterStat { kEncodeNs, kOutputIoNs, kOutputBytesIn, kOutputBytesOut };
 
 enum class Codec : int { kPlain = 0, kGzip = 1, kZstd = 2, kXz = 3, kBz2 = 4 };
 
@@ -1792,6 +1814,7 @@ struct BgzfState {
 struct Source {
   FILE* raw = nullptr;
   Codec codec = Codec::kPlain;
+  int64_t* stats = nullptr;  // ReaderStat slots, or none
   bool raw_eof = false;
   std::vector<uint8_t> in_buf;
   size_t in_pos = 0, in_len = 0;
@@ -2020,9 +2043,15 @@ struct Source {
     ahead = std::make_unique<DecodeAhead>();
     DecodeAhead* a = ahead.get();
     a->th = std::thread([this, a] {
+      int64_t* st = stats;
       for (;;) {
         std::vector<uint8_t> chunk(kBufSize);
+        const int64_t t0 = st ? now_ns() : 0;
         int64_t got = read_direct(chunk.data(), chunk.size());
+        if (st) {
+          st[kDecodeBusyNs] += now_ns() - t0;
+          if (got > 0) st[kDecodeBytes] += got;
+        }
         std::unique_lock<std::mutex> lk(a->mu);
         if (got < 0) {
           a->err = true;
@@ -2035,8 +2064,10 @@ struct Source {
         }
         a->cv_pop.notify_one();
         if (a->err || a->eof) return;
+        const int64_t tw = st ? now_ns() : 0;
         a->cv_push.wait(
             lk, [a] { return a->q_bytes < DecodeAhead::kMaxBytes || a->stop; });
+        if (st) st[kDecodeFullWaitNs] += now_ns() - tw;
         if (a->stop) return;
       }
     });
@@ -2047,7 +2078,9 @@ struct Source {
     size_t out = 0;
     while (out < n) {
       std::unique_lock<std::mutex> lk(a->mu);
+      const int64_t tw = stats ? now_ns() : 0;
       a->cv_pop.wait(lk, [a] { return !a->q.empty() || a->eof || a->err; });
+      if (stats) stats[kReaderEmptyWaitNs] += now_ns() - tw;
       if (a->q.empty()) {
         if (a->err) return -1;
         break;  // eof
@@ -2397,7 +2430,18 @@ struct DxWriter {
   lzma_stream lz = LZMA_STREAM_INIT;
   bool lz_init = false;
   std::vector<uint8_t> out_buf;
+  int64_t* stats = nullptr;  // WriterStat slots, or none
 };
+
+// fwrite of encoded (or plain) output, counted into the writer's stats.
+bool put_output(DxWriter* w, const uint8_t* p, size_t n) {
+  if (!w->stats) return fwrite(p, 1, n, w->file) == n;
+  const int64_t t0 = now_ns();
+  bool ok = fwrite(p, 1, n, w->file) == n;
+  w->stats[kOutputIoNs] += now_ns() - t0;
+  w->stats[kOutputBytesOut] += (int64_t)n;
+  return ok;
+}
 
 }  // namespace
 
@@ -2595,12 +2639,12 @@ DxWriter* dx_writer_open(const char* path, int codec, int level,
   return w;
 }
 
-int dx_writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
+static int writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
   switch (w->codec) {
     case Codec::kBz2:
       return -1;  // unreachable: open rejects bz2 writers
     case Codec::kPlain:
-      return fwrite(data, 1, (size_t)len, w->file) == (size_t)len ? 0 : -1;
+      return put_output(w, data, (size_t)len) ? 0 : -1;
     case Codec::kGzip: {
       w->zs.next_in = const_cast<uint8_t*>(data);
       w->zs.avail_in = (uInt)len;
@@ -2609,8 +2653,7 @@ int dx_writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
         w->zs.avail_out = (uInt)w->out_buf.size();
         if (deflate(&w->zs, Z_NO_FLUSH) != Z_OK) return -1;
         size_t got = w->out_buf.size() - w->zs.avail_out;
-        if (got && fwrite(w->out_buf.data(), 1, got, w->file) != got)
-          return -1;
+        if (got && !put_output(w, w->out_buf.data(), got)) return -1;
       }
       return 0;
     }
@@ -2620,8 +2663,7 @@ int dx_writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
         ZSTD_outBuffer ob{w->out_buf.data(), w->out_buf.size(), 0};
         size_t rc = w->zst->compressStream(w->zcs, &ob, &ib);
         if (w->zst->isError(rc)) return -1;
-        if (ob.pos && fwrite(w->out_buf.data(), 1, ob.pos, w->file) != ob.pos)
-          return -1;
+        if (ob.pos && !put_output(w, w->out_buf.data(), ob.pos)) return -1;
       }
       return 0;
     }
@@ -2633,8 +2675,7 @@ int dx_writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
         w->lz.avail_out = w->out_buf.size();
         if (lzma_code(&w->lz, LZMA_RUN) != LZMA_OK) return -1;
         size_t got = w->out_buf.size() - w->lz.avail_out;
-        if (got && fwrite(w->out_buf.data(), 1, got, w->file) != got)
-          return -1;
+        if (got && !put_output(w, w->out_buf.data(), got)) return -1;
       }
       return 0;
     }
@@ -2642,7 +2683,7 @@ int dx_writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
   return -1;
 }
 
-int dx_writer_close(DxWriter* w) {
+static int writer_close(DxWriter* w) {
   int rc = 0;
   switch (w->codec) {
     case Codec::kBz2:
@@ -2655,7 +2696,7 @@ int dx_writer_close(DxWriter* w) {
         w->zs.avail_out = (uInt)w->out_buf.size();
         r = deflate(&w->zs, Z_FINISH);
         size_t got = w->out_buf.size() - w->zs.avail_out;
-        if (got && fwrite(w->out_buf.data(), 1, got, w->file) != got) rc = -1;
+        if (got && !put_output(w, w->out_buf.data(), got)) rc = -1;
       } while (r == Z_OK);
       if (r != Z_STREAM_END) rc = -1;
       deflateEnd(&w->zs);
@@ -2671,8 +2712,7 @@ int dx_writer_close(DxWriter* w) {
           rc = -1;
           break;
         }
-        if (ob.pos && fwrite(w->out_buf.data(), 1, ob.pos, w->file) != ob.pos)
-          rc = -1;
+        if (ob.pos && !put_output(w, w->out_buf.data(), ob.pos)) rc = -1;
       } while (remaining > 0);
       w->zst->freeCStream(w->zcs);
       w->zcs = nullptr;
@@ -2685,7 +2725,7 @@ int dx_writer_close(DxWriter* w) {
         w->lz.avail_out = w->out_buf.size();
         r = lzma_code(&w->lz, LZMA_FINISH);
         size_t got = w->out_buf.size() - w->lz.avail_out;
-        if (got && fwrite(w->out_buf.data(), 1, got, w->file) != got) rc = -1;
+        if (got && !put_output(w, w->out_buf.data(), got)) rc = -1;
       } while (r == LZMA_OK);
       if (r != LZMA_STREAM_END) rc = -1;
       lzma_end(&w->lz);
@@ -2693,15 +2733,53 @@ int dx_writer_close(DxWriter* w) {
       break;
     }
   }
+  const int64_t t_io = w->stats ? now_ns() : 0;
   if (w->file && w->file != stdout) {
     if (fclose(w->file)) rc = -1;
   } else if (w->file) {
     if (fflush(w->file)) rc = -1;
   }
+  if (w->stats) w->stats[kOutputIoNs] += now_ns() - t_io;
   w->file = nullptr;
   delete w;
   return rc;
 }
+
+// Appends len bytes to the output, through its encoder. 0, or -1 on
+// failure.
+int dx_writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
+  int64_t* st = w->stats;
+  if (!st) return writer_write(w, data, len);
+  const int64_t t0 = now_ns(), io0 = st[kOutputIoNs];
+  int rc = writer_write(w, data, len);
+  st[kEncodeNs] += now_ns() - t0 - (st[kOutputIoNs] - io0);
+  st[kOutputBytesIn] += len;
+  return rc;
+}
+
+// Ends the encoder's stream, closes the output (stdout is flushed) and
+// frees the writer. 0, or -1 on failure.
+int dx_writer_close(DxWriter* w) {
+  int64_t* st = w->stats;
+  if (!st) return writer_close(w);
+  const int64_t t0 = now_ns(), io0 = st[kOutputIoNs];
+  int rc = writer_close(w);
+  st[kEncodeNs] += now_ns() - t0 - (st[kOutputIoNs] - io0);
+  return rc;
+}
+
+// From now on the reader adds its ReaderStat counts to stats[0..3]: the
+// decode-ahead thread's seconds in read_direct (the read and the decode;
+// serial gzip, zstd, xz and bzip2 streams) and blocked on its full queue,
+// the bytes it decoded, and the reader's wait on the empty queue (ns).
+// Call before the first read; stats must outlive dx_close.
+void dx_reader_stats(DxReader* r, int64_t* stats) { r->src.stats = stats; }
+
+// From now on the writer adds its WriterStat counts to stats[0..3]: ns in
+// the encoder (the write and close calls less their output), ns in
+// fwrite and fclose, bytes given and bytes written. stats must outlive
+// dx_writer_close.
+void dx_writer_stats(DxWriter* w, int64_t* stats) { w->stats = stats; }
 
 
 // Concatenates n byte ranges, each given by its address and length, into
@@ -4712,18 +4790,6 @@ struct StageProf {
   std::atomic<int64_t> writer_stall{0};   // writer: waiting for next batch
 };
 
-static inline int64_t now_ns() {  // wall clock: stall (wait) counters
-  struct timespec ts;
-  clock_gettime(CLOCK_MONOTONIC, &ts);
-  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
-}
-
-static inline int64_t now_cpu_ns() {  // this thread's CPU time: compute
-  struct timespec ts;                 // stages (immune to steal/preemption)
-  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &ts);
-  return ts.tv_sec * 1000000000LL + ts.tv_nsec;
-}
-
 struct FBatch {
   int64_t seq_no = 0;
   int64_t n_units = 0;  // records (single) or pairs (paired)
@@ -5753,8 +5819,11 @@ int dx_filter_run(const char* input, const char* input2, const char* output,
   }
   FilterJob J;
   {
+    // DEACON_TRACE=1 (the port's tracing) turns the profile on as well
     const char* p = getenv("DEACON_NATIVE_PROFILE");
-    J.prof.on = p != nullptr && p[0] != '\0' && p[0] != '0';
+    const char* t = getenv("DEACON_TRACE");
+    J.prof.on = (p != nullptr && p[0] != '\0' && p[0] != '0') ||
+                (t != nullptr && strcmp(t, "1") == 0);
   }
   if (out_codec == 2 || (output2 && out2_codec == 2)) {
     J.zst = ZstdApi::get(zstd_lib);

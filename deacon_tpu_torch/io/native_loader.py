@@ -39,6 +39,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import trace
 from . import zstd
 from .fastx import FastxParseError, Record, RecordBatch
 
@@ -133,6 +134,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dx_is_fastq": (ctypes.c_int, [vp]),
         "dx_error": (ctypes.c_char_p, [vp]),
         "dx_next_batch_view": (i64, [vp, i64, i64, vp, vp, vp]),
+        "dx_reader_stats": (None, [vp, vp]),
+        "dx_writer_stats": (None, [vp, vp]),
         "dx_writer_open": (vp, [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_char_p]),
         "dx_writer_write": (ctypes.c_int, [vp, vp, i64]),
@@ -433,6 +436,35 @@ def _open_error(lib) -> str:
     return lib.dx_open_error().decode("utf-8", "replace")
 
 
+#: the counters of a reader's dx_reader_stats slots, in their order: the
+#: decode-ahead thread's nanoseconds reading and decoding and blocked on
+#: a full queue, the bytes it decoded, and the reader's nanoseconds
+#: waiting on an empty queue
+READER_COUNTERS = ("decode.busy_ns", "decode.full_wait_ns", "decode.bytes",
+                   "reader.empty_wait_ns")
+#: the counters of a writer's dx_writer_stats slots: nanoseconds in the
+#: encoder and in fwrite/fclose, bytes given and bytes written
+WRITER_COUNTERS = ("encode.ns", "output.io_ns", "output.bytes_in",
+                   "output.bytes_out")
+
+
+def _stats_sink(register, handle, n: int) -> np.ndarray | None:
+    """With tracing on: an int64 array the library counts into from now
+    on (``register`` is dx_reader_stats or dx_writer_stats); else None,
+    and the library counts nothing."""
+    if not trace.enabled():
+        return None
+    stats = np.zeros(n, np.int64)
+    register(handle, stats.ctypes.data)
+    return stats
+
+
+def _add_counters(names, stats) -> None:
+    if stats is not None:
+        for name, v in zip(names, stats.tolist()):
+            trace.count(name, v)
+
+
 class NativeFastxReader:
     """FASTA/FASTQ reader over the host library: plain, gzip and BGZF,
     zstd (through io/zstd.LIBRARY), xz and bzip2, from a path or stdin
@@ -444,7 +476,10 @@ class NativeFastxReader:
     ``read_batch`` returns owned RecordBatches (the filter loop's form);
     ``read_batch_raw`` returns views of the reader's own buffers, which
     the next call on the reader invalidates; iteration yields Records.
-    One thread at a time may use a reader."""
+    One thread at a time may use a reader. With tracing on (utils/trace)
+    the library counts the decode-ahead thread's work and waits into
+    ``_stats`` (dx_reader_stats), which close() adds to the counters
+    READER_COUNTERS."""
 
     def __init__(self, path: str | os.PathLike | None,
                  batch_mb: int = 64, byte_range=None):
@@ -461,6 +496,8 @@ class NativeFastxReader:
             self._h = self._lib.dx_open_range(p, start, 0, end - start)
         if not self._h:
             raise OSError(f"Failed to open {path!r}: {_open_error(self._lib)}")
+        self._stats = _stats_sink(self._lib.dx_reader_stats, self._h,
+                                  len(READER_COUNTERS))
         self._max_batch_bytes = max(1, batch_mb) << 20
         self._done = False
         self._queue: RecordBatch | None = None
@@ -470,6 +507,7 @@ class NativeFastxReader:
         if self._h:
             self._lib.dx_close(self._h)
             self._h = None
+            _add_counters(READER_COUNTERS, self._stats)
 
     def __del__(self):
         self.close()
@@ -489,10 +527,11 @@ class NativeFastxReader:
         arena_p = ctypes.POINTER(ctypes.c_uint8)()
         arena_len = ctypes.c_int64()
         meta_p = ctypes.POINTER(ctypes.c_int64)()
-        n = self._lib.dx_next_batch_view(
-            self._h, max_records, self._max_batch_bytes,
-            ctypes.byref(arena_p), ctypes.byref(arena_len),
-            ctypes.byref(meta_p))
+        with trace.span("reader.parse"):
+            n = self._lib.dx_next_batch_view(
+                self._h, max_records, self._max_batch_bytes,
+                ctypes.byref(arena_p), ctypes.byref(arena_len),
+                ctypes.byref(meta_p))
         if n < 0:
             err = self._lib.dx_error(self._h).decode("utf-8", "replace")
             raise FastxParseError(err or "FASTX parse error")
@@ -515,12 +554,13 @@ class NativeFastxReader:
             meta, arena = self.read_batch_raw(n_records - got)
             if meta.shape[0] == 0:
                 break
-            m = meta.copy()
-            m[:, 0] += base
-            m[:, 2] += base
-            m[:, 4] = np.where(m[:, 4] >= 0, m[:, 4] + base, -1)
-            metas.append(m)
-            arenas.append(arena.copy())
+            with trace.span("reader.assemble"):
+                m = meta.copy()
+                m[:, 0] += base
+                m[:, 2] += base
+                m[:, 4] = np.where(m[:, 4] >= 0, m[:, 4] + base, -1)
+                metas.append(m)
+                arenas.append(arena.copy())
             base += arena.size
             got += m.shape[0]
         if not metas:
@@ -528,7 +568,8 @@ class NativeFastxReader:
                                np.empty(0, np.uint8))
         if len(metas) == 1:
             return RecordBatch(metas[0], arenas[0])
-        return RecordBatch(np.concatenate(metas), np.concatenate(arenas))
+        with trace.span("reader.assemble"):
+            return RecordBatch(np.concatenate(metas), np.concatenate(arenas))
 
     def __iter__(self):
         return self
@@ -551,7 +592,9 @@ CODEC_BY_EXT = {".gz": 1, ".zst": 2, ".xz": 3}
 class NativeWriter:
     """Output stream over the host library's encoders (io/writers.
     get_writer picks it for every codec). One thread at a time may use
-    a writer."""
+    a writer. With tracing on (utils/trace) the library counts its
+    encoding and output into ``_stats`` (dx_writer_stats), which finish()
+    adds to the counters WRITER_COUNTERS."""
 
     def __init__(self, path: str, codec: int, level: int):
         self._h = None
@@ -564,6 +607,8 @@ class NativeWriter:
         if not self._h:
             raise OSError(f"Failed to create output file: {path}: "
                           f"{_open_error(self._lib)}")
+        self._stats = _stats_sink(self._lib.dx_writer_stats, self._h,
+                                  len(WRITER_COUNTERS))
 
     def write(self, data) -> None:
         """Append bytes (or a contiguous uint8 array)."""
@@ -572,7 +617,9 @@ class NativeWriter:
         else:
             ptr = data = bytes(data)  # no copy when data is bytes
             n = len(data)
-        if self._lib.dx_writer_write(self._h, ptr, n) != 0:
+        with trace.span("writer.write"):
+            rc = self._lib.dx_writer_write(self._h, ptr, n)
+        if rc != 0:
             raise OSError("write failed")
 
     def flush(self) -> None:
@@ -580,8 +627,10 @@ class NativeWriter:
 
     def finish(self) -> None:
         if self._h:
-            rc = self._lib.dx_writer_close(self._h)
+            with trace.span("writer.finish"):
+                rc = self._lib.dx_writer_close(self._h)
             self._h = None
+            _add_counters(WRITER_COUNTERS, self._stats)
             if rc != 0:
                 raise OSError("closing the output failed")
 

@@ -16,6 +16,7 @@ from typing import BinaryIO
 
 import numpy as np
 
+from ..utils import trace
 from .fastx import RecordBatch
 
 OUTPUT_BUFFER_SIZE = 8 * 1024 * 1024  # ref: src/local_filter.rs:25
@@ -42,7 +43,8 @@ class FastxWriter:
         self._finished = False
 
     def write(self, data: bytes) -> None:
-        self._sink.write(data)
+        with trace.span("writer.write"):
+            self._sink.write(data)
 
     def flush(self) -> None:
         try:
@@ -54,12 +56,13 @@ class FastxWriter:
         if self._finished:
             return
         self._finished = True
-        if self._finisher is not None:
-            self._finisher()
-        else:
-            self.flush()
-        if self._closer is not None:
-            self._closer()
+        with trace.span("writer.finish"):
+            if self._finisher is not None:
+                self._finisher()
+            else:
+                self.flush()
+            if self._closer is not None:
+                self._closer()
 
 
 def resolve_codec(output_path: str, compression_level: int) -> int:
@@ -157,32 +160,33 @@ def format_batch(batch: RecordBatch, idx: np.ndarray,
                  numbers: np.ndarray | None = None) -> np.ndarray:
     """Records ``idx`` of a batch formatted as format_record formats them,
     concatenated (uint8); ``numbers`` replaces their ids (--rename)."""
-    from .native_loader import gather
+    with trace.span("writer.format"):
+        from .native_loader import gather
 
-    idx = np.asarray(idx, dtype=np.int64)
-    m = batch.meta[idx]
-    arena = np.ascontiguousarray(batch.arena)
-    a0, s0 = arena.ctypes.data, _SEP.ctypes.data
-    fq = m[:, 4] >= 0
-    n = idx.size
-    addrs = np.empty((n, 7), dtype=np.int64)
-    lens = np.empty((n, 7), dtype=np.int64)
-    addrs[:, 0], lens[:, 0] = np.where(fq, s0, s0 + 1), 1
-    keep_alive = None
-    if numbers is None:
-        addrs[:, 1], lens[:, 1] = a0 + m[:, 0], m[:, 1]
-    else:
-        names = [str(x).encode() for x in np.asarray(numbers).tolist()]
-        keep_alive = np.frombuffer(b"".join(names), dtype=np.uint8)
-        nl = np.fromiter(map(len, names), np.int64, n)
-        addrs[:, 1] = keep_alive.ctypes.data + np.cumsum(nl) - nl
-        lens[:, 1] = nl
-    addrs[:, 2], lens[:, 2] = s0 + 2, 1
-    addrs[:, 3], lens[:, 3] = a0 + m[:, 2], m[:, 3]
-    addrs[:, 4], lens[:, 4] = s0 + 2, np.where(fq, 3, 0)
-    addrs[:, 5], lens[:, 5] = a0 + np.maximum(m[:, 4], 0), np.where(
-        fq, m[:, 5], 0)
-    addrs[:, 6], lens[:, 6] = s0 + 2, 1
-    out = gather(addrs.reshape(-1), lens.reshape(-1))
-    del keep_alive
-    return out
+        idx = np.asarray(idx, dtype=np.int64)
+        m = batch.meta[idx]
+        arena = np.ascontiguousarray(batch.arena)
+        a0, s0 = arena.ctypes.data, _SEP.ctypes.data
+        fq = m[:, 4] >= 0
+        n = idx.size
+        addrs = np.empty((n, 7), dtype=np.int64)
+        lens = np.empty((n, 7), dtype=np.int64)
+        addrs[:, 0], lens[:, 0] = np.where(fq, s0, s0 + 1), 1
+        keep_alive = None
+        if numbers is None:
+            addrs[:, 1], lens[:, 1] = a0 + m[:, 0], m[:, 1]
+        else:
+            names = [str(x).encode() for x in np.asarray(numbers).tolist()]
+            keep_alive = np.frombuffer(b"".join(names), dtype=np.uint8)
+            nl = np.fromiter(map(len, names), np.int64, n)
+            addrs[:, 1] = keep_alive.ctypes.data + np.cumsum(nl) - nl
+            lens[:, 1] = nl
+        addrs[:, 2], lens[:, 2] = s0 + 2, 1
+        addrs[:, 3], lens[:, 3] = a0 + m[:, 2], m[:, 3]
+        addrs[:, 4], lens[:, 4] = s0 + 2, np.where(fq, 3, 0)
+        addrs[:, 5], lens[:, 5] = a0 + np.maximum(m[:, 4], 0), np.where(
+            fq, m[:, 5], 0)
+        addrs[:, 6], lens[:, 6] = s0 + 2, 1
+        out = gather(addrs.reshape(-1), lens.reshape(-1))
+        del keep_alive
+        return out

@@ -64,6 +64,7 @@ import torch
 
 from ..constants import MAX_K_BUILD, MAX_K_FILTER
 from ..device import resolve_device
+from ..utils import trace
 from . import minimizers_np as mnp
 from .hash import as_i64, lsr, xxh3_64, xxh3_64_u128
 from .kernels import select_compact, select_csum, values_argmin, values_select
@@ -206,21 +207,25 @@ def engine_step(pc, pv, mlen, allow_short, rid, mate, cstart, tables, *,
     truncated counts."""
     R, Lp = pc.shape
     L = Lp * 4
-    pos_c, planes, rt = select_slots(pc, pv, mlen, allow_short, k=k, w=w,
-                                     Br=budget, route=route)
+    with trace.span("step.select"):
+        pos_c, planes, rt = select_slots(pc, pv, mlen, allow_short, k=k,
+                                         w=w, Br=budget, route=route)
     lane = torch.arange(budget, dtype=torch.int32, device=pc.device)
     valid2d = lane[None, :] < torch.clamp(rt, max=budget)[:, None]
-    hashes = hash_planes(planes)
+    with trace.span("step.hash"):
+        hashes = hash_planes(planes)
     del planes
     hits = radix_probe_hits(
         tables, hashes, valid2d, rid[:, None].expand(R, budget),
         num_segments=num_segments,
     )
     l = k + w - 1
-    totals = totals_grid(
-        pos_c, valid2d, rid, mate, cstart, num_segments=num_segments,
-        k=k, l=l, stride=max(1, L - l + 1), dedup_positions=dedup_positions,
-    )
+    with trace.span("step.totals"):
+        totals = totals_grid(
+            pos_c, valid2d, rid, mate, cstart, num_segments=num_segments,
+            k=k, l=l, stride=max(1, L - l + 1),
+            dedup_positions=dedup_positions,
+        )
     return torch.cat([hits, totals, rt.max().reshape(1)]).to(torch.int32), rt
 
 
@@ -278,7 +283,13 @@ class FetchGroup:
             return got
         pending, self._pending = self._pending, []
         flat = [x for _, xs in pending for x in xs]
-        fused = torch.cat(flat).cpu().numpy() if flat else np.zeros(0, np.int32)
+        if flat:
+            with trace.span("resolve.fetch"):
+                fused = torch.cat(flat).cpu().numpy()
+            trace.count("fetch.copies")
+            trace.count("fetch.bytes", fused.nbytes)
+        else:
+            fused = np.zeros(0, np.int32)
         off = 0
         for t, xs in pending:
             outs = []
@@ -359,80 +370,88 @@ class DevicePipeline:
         and a tile's units fill batches in order, a batch taking units
         while their rows fit in R (a unit of more than R rows gets a
         batch of its own)."""
-        eff = effective_lengths(arena, start, length, prefix_length, self.k)
-        seq, rstart, rlen, cstart = chunk_spans(
-            start, eff, k=self.k, l=self.l, stride=self._stride,
-            max_len=self.L_max)
-        rows = RowBlock(arena, rstart, rlen, unit[seq], mate[seq], cstart)
-        in_flight: list[tuple] = []
-        if len(rows):
-            # per unit with rows: its tile class and its row count
-            units, first_row, n_rows = np.unique(
-                rows.rid, return_index=True, return_counts=True)
-            tile = tile_index(self.tiles,
-                              np.maximum.reduceat(rows.length, first_row))
-            tile_of_row = np.repeat(tile, n_rows)
-            _, tile_first = np.unique(tile, return_index=True)
-            for t in tile[np.sort(tile_first)].tolist():
-                L, R = self.tiles[t]
-                t_units = np.nonzero(tile == t)[0]
-                t_rows = rows.take(tile_of_row == t)
-                cum = np.cumsum(n_rows[t_units])
-                a = 0
-                while a < t_units.size:
-                    before = cum[a - 1] if a else 0
-                    b = max(a + 1, int(np.searchsorted(cum, before + R,
-                                                       side="right")))
-                    r0, r1 = int(before), int(cum[b - 1])
-                    batch = t_rows.take(slice(r0, r1))
-                    gids = units[t_units[a:b]]
-                    batch.rid = np.searchsorted(gids, batch.rid)
-                    budget = v4_row_budget(L, self.w, self.budget_frac)
-                    out, rt = self._launch_batch(batch, L, gids.size, budget)
-                    in_flight.append((gids, batch, L, budget, out, rt))
-                    a = b
+        with trace.span("launch.counts"):
+            eff = effective_lengths(arena, start, length, prefix_length,
+                                    self.k)
+            seq, rstart, rlen, cstart = chunk_spans(
+                start, eff, k=self.k, l=self.l, stride=self._stride,
+                max_len=self.L_max)
+            rows = RowBlock(arena, rstart, rlen, unit[seq], mate[seq],
+                            cstart)
+            in_flight: list[tuple] = []
+            if len(rows):
+                # per unit with rows: its tile class and its row count
+                units, first_row, n_rows = np.unique(
+                    rows.rid, return_index=True, return_counts=True)
+                tile = tile_index(self.tiles,
+                                  np.maximum.reduceat(rows.length, first_row))
+                tile_of_row = np.repeat(tile, n_rows)
+                _, tile_first = np.unique(tile, return_index=True)
+                for t in tile[np.sort(tile_first)].tolist():
+                    L, R = self.tiles[t]
+                    t_units = np.nonzero(tile == t)[0]
+                    t_rows = rows.take(tile_of_row == t)
+                    cum = np.cumsum(n_rows[t_units])
+                    a = 0
+                    while a < t_units.size:
+                        before = cum[a - 1] if a else 0
+                        b = max(a + 1, int(np.searchsorted(cum, before + R,
+                                                           side="right")))
+                        r0, r1 = int(before), int(cum[b - 1])
+                        batch = t_rows.take(slice(r0, r1))
+                        gids = units[t_units[a:b]]
+                        batch.rid = np.searchsorted(gids, batch.rid)
+                        budget = v4_row_budget(L, self.w, self.budget_frac)
+                        out, rt = self._launch_batch(batch, L, gids.size,
+                                                     budget)
+                        in_flight.append((gids, batch, L, budget, out, rt))
+                        a = b
 
-        ticket = self.fetch_group.register([f[4] for f in in_flight])
+            ticket = self.fetch_group.register([f[4] for f in in_flight])
 
-        def resolve():
-            hits = np.zeros(n_logical, dtype=np.int64)
-            totals = np.zeros(n_logical, dtype=np.int64)
-            fetched = self.fetch_group.materialize(ticket)
-            for (gids, rows, L, budget, _out, rt), arr in zip(in_flight,
-                                                              fetched):
-                n = gids.size
-                h, t = arr[:n], arr[n:2 * n]
-                if int(arr[2 * n]) > budget:
-                    h, t = self._rerun_over_budget(rows, rt, L, budget, h, t)
-                hits[gids] += h
-                totals[gids] += t
-            return hits, totals
+            def resolve():
+                hits = np.zeros(n_logical, dtype=np.int64)
+                totals = np.zeros(n_logical, dtype=np.int64)
+                fetched = self.fetch_group.materialize(ticket)
+                for (gids, rows, L, budget, _out, rt), arr in zip(
+                        in_flight, fetched):
+                    n = gids.size
+                    h, t = arr[:n], arr[n:2 * n]
+                    if int(arr[2 * n]) > budget:
+                        h, t = self._rerun_over_budget(rows, rt, L, budget,
+                                                       h, t)
+                    hits[gids] += h
+                    totals[gids] += t
+                return hits, totals
 
-        return resolve
+            return resolve
 
     def _rerun_over_budget(self, rows: RowBlock, rt, L, budget, hits,
                            totals):
         """Exact (hits, totals) of a batch with rows over budget: the units
         owning those rows run again on the device, with the budget rounded
         up to their largest row total (at most L, so every slot fits)."""
-        row_tot = rt.cpu().numpy()
-        rid = rows.rid
-        over = np.unique(rid[row_tot > budget])
-        local = np.full(len(hits), -1, np.int64)
-        local[over] = np.arange(over.size)
-        mine = local[rid] >= 0
-        sel = rows.take(mine)
-        sel.rid = local[sel.rid]
-        need = int(row_tot[mine].max())
-        out, _ = self._launch_batch(sel, L, over.size,
-                                    min(L, -(-need // 128) * 128))
-        arr = out.cpu().numpy()
-        hits, totals = hits.copy(), totals.copy()
-        hits[over] = arr[:over.size]
-        totals[over] = arr[over.size:2 * over.size]
-        self.rerun_batches += 1
-        self.rerun_units += int(over.size)
-        return hits, totals
+        with trace.span("resolve.rerun"):
+            row_tot = rt.cpu().numpy()
+            rid = rows.rid
+            over = np.unique(rid[row_tot > budget])
+            local = np.full(len(hits), -1, np.int64)
+            local[over] = np.arange(over.size)
+            mine = local[rid] >= 0
+            sel = rows.take(mine)
+            sel.rid = local[sel.rid]
+            need = int(row_tot[mine].max())
+            out, _ = self._launch_batch(sel, L, over.size,
+                                        min(L, -(-need // 128) * 128))
+            arr = out.cpu().numpy()
+            trace.count("fetch.copies", 2)
+            trace.count("fetch.bytes", row_tot.nbytes + arr.nbytes)
+            hits, totals = hits.copy(), totals.copy()
+            hits[over] = arr[:over.size]
+            totals[over] = arr[over.size:2 * over.size]
+            self.rerun_batches += 1
+            self.rerun_units += int(over.size)
+            return hits, totals
 
     def _launch_batch(self, rows: RowBlock, L: int, n_units: int,
                       budget: int):
@@ -443,14 +462,24 @@ class DevicePipeline:
     def _step(self, rows: RowBlock, L: int, n_units: int, budget: int,
               device: torch.device, tables):
         """engine_step of one batch on ``device`` against ``tables``."""
-        pc, pv, mlen, allow_short, rid, mate, cstart = upload(
-            list(pack_block(rows, len(rows), L, self.k, self.l)), device)
-        return engine_step(
-            pc, pv, mlen, allow_short, rid, mate, cstart, tables,
-            k=self.k, w=self.w, budget=budget, num_segments=n_units,
-            # only the largest tile class ever holds chunked long reads
-            dedup_positions=L >= self.L_max, route=self.routes[L],
-        )
+        with trace.span("launch.pack"):
+            packed = list(pack_block(rows, len(rows), L, self.k, self.l))
+        with trace.span("launch.upload"):
+            pc, pv, mlen, allow_short, rid, mate, cstart = upload(packed,
+                                                                  device)
+        if trace.enabled():
+            trace.count("launch.device_batches")
+            trace.count("launch.rows", len(rows))
+            trace.count("launch.row_bases", int(rows.length.sum()))
+            trace.count("launch.tile_bases", len(rows) * L)
+            trace.count("upload.bytes", sum(a.nbytes for a in packed))
+        with trace.span("launch.enqueue"):
+            return engine_step(
+                pc, pv, mlen, allow_short, rid, mate, cstart, tables,
+                k=self.k, w=self.w, budget=budget, num_segments=n_units,
+                # only the largest tile class ever holds chunked long reads
+                dedup_positions=L >= self.L_max, route=self.routes[L],
+            )
 
     def counts_single(self, seqs: list[bytes], prefix_length: int):
         return self.launch_single(seqs, prefix_length)()

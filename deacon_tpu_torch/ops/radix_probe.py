@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import trace
 from .hash import lsr
 from .kernels import probe_hits
 
@@ -387,17 +388,20 @@ def radix_probe_hits(tables, hashes, slot_valid, rid_slots, *,
     stream goes there and its hits come back to the stream's device,
     where they are summed). Exact on any batch in one pass (no window
     sizing, no overflow, no rerun)."""
-    key, srid, first = prep_sorted(hashes, slot_valid, rid_slots)
+    with trace.span("step.sort"):
+        key, srid, first = prep_sorted(hashes, slot_valid, rid_slots)
     home = key.device
     total = None
-    for t in tables:
-        dev = t.slots.device
-        hits = probe_hits(
-            t.slots, t.spill, key.to(dev, non_blocking=True),
-            srid.to(dev, non_blocking=True), first.to(dev, non_blocking=True),
-            p=t.p, sp=t.sp, num_segments=num_segments, row_lo=t.row_lo,
-        ).to(home, non_blocking=True)
-        total = hits if total is None else total + hits
+    with trace.span("step.probe"):
+        for t in tables:
+            dev = t.slots.device
+            hits = probe_hits(
+                t.slots, t.spill, key.to(dev, non_blocking=True),
+                srid.to(dev, non_blocking=True),
+                first.to(dev, non_blocking=True), p=t.p, sp=t.sp,
+                num_segments=num_segments, row_lo=t.row_lo,
+            ).to(home, non_blocking=True)
+            total = hits if total is None else total + hits
     return total
 
 
