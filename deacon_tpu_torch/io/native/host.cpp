@@ -30,8 +30,9 @@
 //
 // Thread contract: a reader (DxReader) or writer (DxWriter) handle is used
 // by one thread at a time; distinct handles are independent. Internal
-// worker threads (BGZF inflate, decode-ahead, index encode, extraction)
-// never outlive the call or handle that started them. The stateless
+// worker threads (BGZF inflate, decode-ahead, gzip output's deflate pool
+// and output thread, index encode, extraction) never outlive the call or
+// handle that started them. The stateless
 // functions (pack, codec, merges, extraction) may run concurrently.
 
 #include <algorithm>
@@ -55,6 +56,7 @@
 
 #include <dlfcn.h>
 #include <fcntl.h>
+#include <sched.h>
 #include <sys/mman.h>
 #include <sys/stat.h>
 #include <unistd.h>
@@ -84,10 +86,12 @@ static inline int64_t now_cpu_ns() {  // this thread's CPU time: compute
 // reader or a writer an int64 array, and the handle adds to its slots
 // from then on; with none (the default) each counted section costs one
 // branch. A slot is written by one thread (the decode-ahead thread or the
-// handle's user) and read once the handle is closed.
+// handle's user; a gzip writer's own threads count apart and are added
+// at close) and read once the handle is closed.
 enum ReaderStat { kDecodeBusyNs, kDecodeFullWaitNs, kDecodeBytes,
                   kReaderEmptyWaitNs };
-enum WriterStat { kEncodeNs, kOutputIoNs, kOutputBytesIn, kOutputBytesOut };
+enum WriterStat { kEncodeNs, kOutputIoNs, kOutputBytesIn, kOutputBytesOut,
+                  kEncodeBusyNs, kEncodeFullWaitNs, kEncodeBlocks };
 
 enum class Codec : int { kPlain = 0, kGzip = 1, kZstd = 2, kXz = 3, kBz2 = 4 };
 
@@ -2420,11 +2424,335 @@ struct DxReader {
 
 };
 
+// ---- gzip output: one member, deflated in blocks on a pool of threads ------
+//
+// A .gz output is deflated as pigz does it. The writer's caller only
+// copies its bytes into input blocks of kGzBlock bytes. Worker threads
+// deflate whole blocks with zlib at the writer's level, memLevel 8 and
+// the default strategy, as raw deflate: each primed with the previous
+// block's last 32 KiB (deflateSetDictionary), so matches reach back as in
+// one stream, and ended with Z_SYNC_FLUSH (a byte-aligned empty stored
+// block), the last with Z_FINISH. One output thread a writer writes
+// zlib's own 10-byte gzip header, the blocks in order, then the trailer
+// (the blocks' CRC32s combined, ISIZE): one gzip member. An output of at
+// most one block is deflated in one call from a fresh state, which gives
+// the bytes of one zlib gzip stream fed in any pieces. kGzBlock = 1 MiB:
+// priming hashes 32 KiB a block (3%) and a block's end costs ~0.03% of
+// its size, while a writer's ~70 MB/s is still ~70 jobs a second to
+// spread over the pool.
+
+constexpr size_t kGzBlock = 1 << 20;
+constexpr size_t kGzDict = 32768;
+
+struct GzOut;
+
+struct GzBlock {
+  GzOut* owner = nullptr;
+  std::vector<uint8_t> in;  // dict_len priming bytes, then len input bytes
+  size_t dict_len = 0, len = 0;
+  std::vector<uint8_t> out;  // the deflated block: out_len bytes
+  size_t out_len = 0;
+  uLong crc = 0;
+  int64_t busy_ns = 0;
+  bool last = false, done = false, ok = false;
+};
+
+void gz_block_done(GzBlock* b);
+
+// The deflate workers, shared by the gzip writers open in the process:
+// made as the first opens, joined as the last closes. Half the CPUs the
+// process may run on (sched_getaffinity), 1 to 8.
+class DeflatePool {
+ public:
+  explicit DeflatePool(int n) {
+    for (int i = 0; i < n; i++) threads_.emplace_back([this] { run(); });
+  }
+  ~DeflatePool() {
+    {
+      std::lock_guard<std::mutex> g(mu_);
+      stop_ = true;
+    }
+    cv_.notify_all();
+    for (auto& t : threads_) t.join();
+  }
+  int size() const { return (int)threads_.size(); }
+  void submit(GzBlock* b) {
+    {
+      std::lock_guard<std::mutex> g(mu_);
+      q_.push_back(b);
+    }
+    cv_.notify_one();
+  }
+
+  static std::shared_ptr<DeflatePool> acquire() {
+    static std::mutex mu;
+    static std::weak_ptr<DeflatePool> shared;
+    std::lock_guard<std::mutex> g(mu);
+    std::shared_ptr<DeflatePool> p = shared.lock();
+    if (!p) {
+      int n = 0;
+      cpu_set_t set;
+      if (sched_getaffinity(0, sizeof(set), &set) == 0) n = CPU_COUNT(&set);
+      if (n <= 0) n = (int)std::thread::hardware_concurrency();
+      p = std::make_shared<DeflatePool>(std::clamp(n / 2, 1, 8));
+      shared = p;
+    }
+    return p;
+  }
+
+ private:
+  static constexpr int kNoLevel = -2;
+
+  void run() {
+    z_stream zs{};
+    int zlevel = kNoLevel;  // the level zs was made for
+    for (;;) {
+      GzBlock* b;
+      {
+        std::unique_lock<std::mutex> lk(mu_);
+        cv_.wait(lk, [this] { return stop_ || !q_.empty(); });
+        if (q_.empty()) break;
+        b = q_.front();
+        q_.pop_front();
+      }
+      const int64_t t0 = now_ns();
+      b->ok = deflate_block(zs, zlevel, b);
+      b->busy_ns = now_ns() - t0;
+      gz_block_done(b);  // from here b is its writer's again
+    }
+    if (zlevel != kNoLevel) deflateEnd(&zs);
+  }
+
+  static bool deflate_block(z_stream& zs, int& zlevel, GzBlock* b);
+
+  std::mutex mu_;
+  std::condition_variable cv_;
+  std::deque<GzBlock*> q_;
+  bool stop_ = false;
+  std::vector<std::thread> threads_;
+};
+
+// A gzip writer's encoder: its blocks, free and in flight, and its output
+// thread. The caller's thread only copies and waits.
+struct GzOut {
+  FILE* file = nullptr;
+  int level = 0;
+  uint8_t header[10];
+  std::shared_ptr<DeflatePool> pool;
+  size_t max_in_flight = 2;  // two blocks a worker
+  GzBlock* cur = nullptr;    // the block the caller fills
+  std::vector<uint8_t> dict;  // the last kGzDict bytes handed off
+  std::vector<std::unique_ptr<GzBlock>> blocks;
+  std::vector<GzBlock*> free_blocks;
+  std::mutex mu;
+  std::condition_variable cv_done, cv_space;
+  std::deque<GzBlock*> pending;  // handed off, not yet written, in order
+  std::atomic<bool> failed{false};
+  std::thread out_th;
+  // the output thread's counts, added to the writer's stats at close
+  int64_t io_ns = 0, bytes_out = 0, busy_ns = 0, n_blocks = 0;
+
+  // Zlib's gzip header for level `lvl` (the first bytes its gzip wrapper
+  // writes), the pool and the output thread. false if zlib refuses the
+  // level.
+  bool open(FILE* f, int lvl) {
+    z_stream zs{};
+    if (deflateInit2(&zs, lvl, Z_DEFLATED, 16 + MAX_WBITS, 8,
+                     Z_DEFAULT_STRATEGY) != Z_OK)
+      return false;
+    uint8_t empty[64];
+    zs.next_out = empty;
+    zs.avail_out = sizeof(empty);
+    const bool ok = deflate(&zs, Z_FINISH) == Z_STREAM_END &&
+                    sizeof(empty) - zs.avail_out >= sizeof(header);
+    deflateEnd(&zs);
+    if (!ok) return false;
+    memcpy(header, empty, sizeof(header));
+    file = f;
+    level = lvl;
+    pool = DeflatePool::acquire();
+    max_in_flight = 2 * (size_t)pool->size();
+    cur = take_block(nullptr);
+    out_th = std::thread([this] { write_out(); });
+    return true;
+  }
+
+  // Copies len bytes into blocks. A full block is handed off once more
+  // bytes follow it, so the last block is never an empty one after it
+  // unless the output is empty.
+  bool write(const uint8_t* data, size_t len, int64_t* wait_ns) {
+    while (len > 0) {
+      if (failed.load(std::memory_order_relaxed)) return false;
+      if (cur->len == kGzBlock) {
+        hand_off(false);
+        cur = take_block(wait_ns);
+      }
+      const size_t n = std::min(len, kGzBlock - cur->len);
+      memcpy(cur->in.data() + cur->dict_len + cur->len, data, n);
+      cur->len += n;
+      data += n;
+      len -= n;
+    }
+    return !failed.load(std::memory_order_relaxed);
+  }
+
+  // Hands off the last block and waits until the output thread has
+  // written it and the trailer; the last writer's close joins the pool.
+  bool finish() {
+    hand_off(true);
+    out_th.join();
+    pool.reset();
+    return !failed.load();
+  }
+
+  // A free block primed with the last kGzDict bytes handed off, once
+  // fewer than max_in_flight blocks are in flight (the wait's ns into
+  // *wait_ns).
+  GzBlock* take_block(int64_t* wait_ns) {
+    GzBlock* b = nullptr;
+    {
+      std::unique_lock<std::mutex> lk(mu);
+      if (pending.size() >= max_in_flight) {
+        const int64_t t0 = wait_ns ? now_ns() : 0;
+        cv_space.wait(lk, [this] { return pending.size() < max_in_flight; });
+        if (wait_ns) *wait_ns += now_ns() - t0;
+      }
+      if (!free_blocks.empty()) {
+        b = free_blocks.back();
+        free_blocks.pop_back();
+      }
+    }
+    if (!b) {
+      blocks.push_back(std::make_unique<GzBlock>());
+      b = blocks.back().get();
+      b->owner = this;
+      b->in.resize(kGzDict + kGzBlock);
+    }
+    b->dict_len = dict.size();
+    memcpy(b->in.data(), dict.data(), dict.size());
+    b->len = 0;
+    b->last = b->done = b->ok = false;
+    return b;
+  }
+
+  void hand_off(bool last) {
+    GzBlock* b = cur;
+    cur = nullptr;
+    b->last = last;
+    if (!last) {  // the next block's priming: this block's input tail
+      const uint8_t* end = b->in.data() + b->dict_len + b->len;
+      dict.assign(end - std::min(kGzDict, b->dict_len + b->len), end);
+    }
+    {
+      std::lock_guard<std::mutex> g(mu);
+      pending.push_back(b);
+    }
+    pool->submit(b);
+  }
+
+  void put(const uint8_t* p, size_t n) {
+    if (failed.load(std::memory_order_relaxed)) return;
+    const int64_t t0 = now_ns();
+    if (fwrite(p, 1, n, file) != n) failed = true;
+    io_ns += now_ns() - t0;
+    bytes_out += (int64_t)n;
+  }
+
+  // The output thread: the header, each block as it comes done in
+  // order, the trailer after the last. After a failure it writes nothing
+  // and only recycles the blocks, so the caller never waits forever.
+  void write_out() {
+    uLong crc = crc32(0L, Z_NULL, 0);
+    uint32_t isize = 0;
+    put(header, sizeof(header));
+    for (bool last = false; !last;) {
+      GzBlock* b;
+      {
+        std::unique_lock<std::mutex> lk(mu);
+        cv_done.wait(lk, [this] {
+          return !pending.empty() && pending.front()->done;
+        });
+        b = pending.front();
+      }
+      busy_ns += b->busy_ns;
+      n_blocks++;
+      if (!b->ok) failed = true;
+      crc = crc32_combine(crc, b->crc, (z_off_t)b->len);
+      isize += (uint32_t)b->len;
+      put(b->out.data(), b->out_len);
+      last = b->last;
+      if (last) {
+        uint8_t tail[8];
+        for (int i = 0; i < 4; i++) {
+          tail[i] = (uint8_t)(crc >> (8 * i));
+          tail[4 + i] = (uint8_t)(isize >> (8 * i));
+        }
+        put(tail, sizeof(tail));
+      }
+      {
+        std::lock_guard<std::mutex> g(mu);
+        pending.pop_front();
+        free_blocks.push_back(b);
+      }
+      cv_space.notify_one();
+    }
+  }
+};
+
+void gz_block_done(GzBlock* b) {
+  GzOut* g = b->owner;
+  std::lock_guard<std::mutex> lk(g->mu);
+  b->done = true;
+  g->cv_done.notify_one();  // under the lock: the writer may go right after
+}
+
+bool DeflatePool::deflate_block(z_stream& zs, int& zlevel, GzBlock* b) {
+  const int level = b->owner->level;
+  if (zlevel != level) {
+    if (zlevel != kNoLevel) deflateEnd(&zs);
+    zs = z_stream{};
+    zlevel = kNoLevel;
+    if (deflateInit2(&zs, level, Z_DEFLATED, -MAX_WBITS, 8,
+                     Z_DEFAULT_STRATEGY) != Z_OK)
+      return false;
+    zlevel = level;
+  } else if (deflateReset(&zs) != Z_OK) {
+    return false;
+  }
+  if (b->dict_len &&
+      deflateSetDictionary(&zs, b->in.data(), (uInt)b->dict_len) != Z_OK)
+    return false;
+  uint8_t* in = b->in.data() + b->dict_len;
+  b->crc = crc32(0L, in, (uInt)b->len);
+  const size_t bound = deflateBound(&zs, b->len) + 16;
+  if (b->out.size() < bound) b->out.resize(bound);
+  zs.next_in = in;
+  zs.avail_in = (uInt)b->len;
+  zs.next_out = b->out.data();
+  zs.avail_out = (uInt)b->out.size();
+  const int flush = b->last ? Z_FINISH : Z_SYNC_FLUSH;
+  for (;;) {
+    const int rc = deflate(&zs, flush);
+    if (rc == Z_STREAM_ERROR) return false;
+    if (b->last ? rc == Z_STREAM_END : zs.avail_in == 0 && zs.avail_out > 0)
+      break;
+    if (zs.avail_out == 0) {  // past the bound: more room, as zlib asks
+      const size_t used = b->out.size();
+      b->out.resize(2 * used);
+      zs.next_out = b->out.data() + used;
+      zs.avail_out = (uInt)(b->out.size() - used);
+    } else if (rc != Z_OK && rc != Z_BUF_ERROR) {
+      return false;
+    }
+  }
+  b->out_len = b->out.size() - zs.avail_out;
+  return true;
+}
+
 struct DxWriter {
   FILE* file = nullptr;
   Codec codec = Codec::kPlain;
-  z_stream zs{};
-  bool zs_init = false;
+  std::unique_ptr<GzOut> gz;
   const ZstdApi* zst = nullptr;
   ZSTD_CStream* zcs = nullptr;
   lzma_stream lz = LZMA_STREAM_INIT;
@@ -2606,15 +2934,13 @@ DxWriter* dx_writer_open(const char* path, int codec, int level,
     case Codec::kPlain:
       break;
     case Codec::kGzip:
-      if (deflateInit2(&w->zs, level, Z_DEFLATED, 16 + MAX_WBITS, 8,
-                       Z_DEFAULT_STRATEGY) != Z_OK) {
+      w->gz = std::make_unique<GzOut>();
+      if (!w->gz->open(w->file, level)) {
         g_open_error = "gzip encoder init failed";
         if (w->file != stdout) fclose(w->file);
         delete w;
         return nullptr;
       }
-      w->zs_init = true;
-      w->out_buf.resize(kBufSize);
       break;
     case Codec::kZstd:
       w->zst = ZstdApi::get(zstd_lib);
@@ -2645,18 +2971,11 @@ static int writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
       return -1;  // unreachable: open rejects bz2 writers
     case Codec::kPlain:
       return put_output(w, data, (size_t)len) ? 0 : -1;
-    case Codec::kGzip: {
-      w->zs.next_in = const_cast<uint8_t*>(data);
-      w->zs.avail_in = (uInt)len;
-      while (w->zs.avail_in > 0) {
-        w->zs.next_out = w->out_buf.data();
-        w->zs.avail_out = (uInt)w->out_buf.size();
-        if (deflate(&w->zs, Z_NO_FLUSH) != Z_OK) return -1;
-        size_t got = w->out_buf.size() - w->zs.avail_out;
-        if (got && !put_output(w, w->out_buf.data(), got)) return -1;
-      }
-      return 0;
-    }
+    case Codec::kGzip:
+      return w->gz->write(data, (size_t)len,
+                          w->stats ? &w->stats[kEncodeFullWaitNs] : nullptr)
+                 ? 0
+                 : -1;
     case Codec::kZstd: {
       ZSTD_inBuffer ib{data, (size_t)len, 0};
       while (ib.pos < ib.size) {
@@ -2689,20 +3008,9 @@ static int writer_close(DxWriter* w) {
     case Codec::kBz2:
     case Codec::kPlain:
       break;
-    case Codec::kGzip: {
-      int r;
-      do {
-        w->zs.next_out = w->out_buf.data();
-        w->zs.avail_out = (uInt)w->out_buf.size();
-        r = deflate(&w->zs, Z_FINISH);
-        size_t got = w->out_buf.size() - w->zs.avail_out;
-        if (got && !put_output(w, w->out_buf.data(), got)) rc = -1;
-      } while (r == Z_OK);
-      if (r != Z_STREAM_END) rc = -1;
-      deflateEnd(&w->zs);
-      w->zs_init = false;
+    case Codec::kGzip:
+      if (!w->gz->finish()) rc = -1;
       break;
-    }
     case Codec::kZstd: {
       size_t remaining;
       do {
@@ -2741,7 +3049,6 @@ static int writer_close(DxWriter* w) {
   }
   if (w->stats) w->stats[kOutputIoNs] += now_ns() - t_io;
   w->file = nullptr;
-  delete w;
   return rc;
 }
 
@@ -2761,10 +3068,18 @@ int dx_writer_write(DxWriter* w, const uint8_t* data, int64_t len) {
 // frees the writer. 0, or -1 on failure.
 int dx_writer_close(DxWriter* w) {
   int64_t* st = w->stats;
-  if (!st) return writer_close(w);
-  const int64_t t0 = now_ns(), io0 = st[kOutputIoNs];
+  const int64_t t0 = st ? now_ns() : 0, io0 = st ? st[kOutputIoNs] : 0;
   int rc = writer_close(w);
-  st[kEncodeNs] += now_ns() - t0 - (st[kOutputIoNs] - io0);
+  if (st) {
+    st[kEncodeNs] += now_ns() - t0 - (st[kOutputIoNs] - io0);
+    if (w->gz) {  // the gzip encoder's threads, joined by now
+      st[kOutputIoNs] += w->gz->io_ns;
+      st[kOutputBytesOut] += w->gz->bytes_out;
+      st[kEncodeBusyNs] += w->gz->busy_ns;
+      st[kEncodeBlocks] += w->gz->n_blocks;
+    }
+  }
+  delete w;
   return rc;
 }
 
@@ -2775,10 +3090,13 @@ int dx_writer_close(DxWriter* w) {
 // Call before the first read; stats must outlive dx_close.
 void dx_reader_stats(DxReader* r, int64_t* stats) { r->src.stats = stats; }
 
-// From now on the writer adds its WriterStat counts to stats[0..3]: ns in
-// the encoder (the write and close calls less their output), ns in
-// fwrite and fclose, bytes given and bytes written. stats must outlive
-// dx_writer_close.
+// From now on the writer adds its WriterStat counts to stats[0..6]: ns
+// of the caller's thread in the encoder (the write and close calls less
+// their own output; for gzip the copy into blocks, the waits for a free
+// block and the close's drain), ns in fwrite and fclose (for gzip on its
+// output thread), bytes given, bytes written, and for gzip the workers'
+// deflate ns, the caller's waits for a free block (ns, also in the
+// first) and the blocks deflated. stats must outlive dx_writer_close.
 void dx_writer_stats(DxWriter* w, int64_t* stats) { w->stats = stats; }
 
 

@@ -442,10 +442,15 @@ def _open_error(lib) -> str:
 #: waiting on an empty queue
 READER_COUNTERS = ("decode.busy_ns", "decode.full_wait_ns", "decode.bytes",
                    "reader.empty_wait_ns")
-#: the counters of a writer's dx_writer_stats slots: nanoseconds in the
-#: encoder and in fwrite/fclose, bytes given and bytes written
+#: the counters of a writer's dx_writer_stats slots: the caller's
+#: nanoseconds in the encoder (for gzip: the copy into blocks, the waits
+#: for a free block, the close's drain) and in fwrite/fclose (for gzip on
+#: its output thread), bytes given and bytes written; for gzip, the
+#: deflate workers' nanoseconds, the caller's waits for a free block and
+#: the blocks deflated
 WRITER_COUNTERS = ("encode.ns", "output.io_ns", "output.bytes_in",
-                   "output.bytes_out")
+                   "output.bytes_out", "encode.busy_ns",
+                   "encode.full_wait_ns", "encode.blocks")
 
 
 def _stats_sink(register, handle, n: int) -> np.ndarray | None:
@@ -592,7 +597,9 @@ CODEC_BY_EXT = {".gz": 1, ".zst": 2, ".xz": 3}
 class NativeWriter:
     """Output stream over the host library's encoders (io/writers.
     get_writer picks it for every codec). One thread at a time may use
-    a writer. With tracing on (utils/trace) the library counts its
+    a writer. A .gz output is deflated in 1 MiB blocks on the library's
+    pool of worker threads and written, in order, as one gzip member by
+    a thread of the writer's own; write() only copies. With tracing on (utils/trace) the library counts its
     encoding and output into ``_stats`` (dx_writer_stats), which finish()
     adds to the counters WRITER_COUNTERS."""
 
@@ -609,6 +616,12 @@ class NativeWriter:
                           f"{_open_error(self._lib)}")
         self._stats = _stats_sink(self._lib.dx_writer_stats, self._h,
                                   len(WRITER_COUNTERS))
+
+    def __del__(self):
+        # a writer dropped unfinished still joins its encoder's threads
+        if self._h:
+            self._lib.dx_writer_close(self._h)
+            self._h = None
 
     def write(self, data) -> None:
         """Append bytes (or a contiguous uint8 array)."""

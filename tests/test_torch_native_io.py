@@ -18,6 +18,7 @@ import lzma
 import os
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -41,7 +42,7 @@ from deacon_tpu_torch.io.fastx import (
 from deacon_tpu_torch.ops import host_extract
 from deacon_tpu_torch.ops import minimizers_np as mnp
 from deacon_tpu_torch.ops import pack
-from deacon_tpu_torch.utils import bincode
+from deacon_tpu_torch.utils import bincode, trace
 from helpers import bgzf_compress
 
 REPO = Path(__file__).resolve().parent.parent
@@ -439,6 +440,155 @@ def test_writer_levels_are_checked(tmp_path, ext, level):
     with pytest.raises(writers.WriterError, match="compression level"):
         writers.get_writer(str(tmp_path / f"o{ext}"), level)
     assert not (tmp_path / f"o{ext}").exists()
+
+
+#: the gzip writer's input block (kGzBlock in host.cpp)
+_GZ_BLOCK = 1 << 20
+
+
+def _fastq_of_size(seed, n):
+    """2x150-like FASTQ of exactly n bytes (blank lines below a record)."""
+    if n < 400:
+        return b"\n" * n
+    rng = np.random.default_rng(seed)
+    m = n // 300 + 1
+    seqs = _B[rng.integers(0, 4, (m, 150))]
+    quals = np.frombuffer(b"#,:F", np.uint8)[
+        rng.choice(4, (m, 150), p=[0.05, 0.05, 0.1, 0.8])]
+    recs = [b"@r%d/1\n%s\n+\n%s\n" % (i, s.tobytes(), q.tobytes())
+            for i, (s, q) in enumerate(zip(seqs, quals))]
+    out, size = [], 0
+    for r in recs:
+        if size + len(r) > n:
+            break
+        out.append(r)
+        size += len(r)
+    last = out.pop()  # pad the last record's id to the size
+    out.append(last[:2] + b"x" * (n - size) + last[2:])
+    return b"".join(out)
+
+
+def _write_straddling(w, data):
+    """Writes of 1 byte, 777, a block less 5, over 3 blocks, 100 kB, ...:
+    every size crosses block edges somewhere."""
+    sizes = [1, 777, _GZ_BLOCK - 5, 3 * _GZ_BLOCK + 11, 100_000]
+    i = k = 0
+    while i < len(data):
+        n = sizes[k % len(sizes)]
+        w.write(data[i:i + n] if k % 2 else
+                np.frombuffer(data[i:i + n], np.uint8))
+        i += n
+        k += 1
+
+
+def _one_member(raw):
+    d = zlib.decompressobj(31)
+    out = d.decompress(raw)
+    assert d.eof and d.unused_data == b"", "not exactly one gzip member"
+    return out
+
+
+def _threads():
+    return len(os.listdir("/proc/self/task"))
+
+
+@pytest.fixture
+def tracing():
+    """Tracing on with an empty registry; as it was again after."""
+    was = trace.enabled()
+    trace.reset()
+    trace.enable()
+    try:
+        yield
+    finally:
+        if not was:
+            trace.disable()
+        trace.reset()
+
+
+@pytest.mark.parametrize("ext", [".gz", ""])
+@pytest.mark.parametrize("n", [0, 1, 5000, _GZ_BLOCK, _GZ_BLOCK + 1,
+                               4 * _GZ_BLOCK + 12_345])
+def test_writer_blocks_inflate_to_the_input(tmp_path, tracing, ext, n):
+    data = _fastq_of_size(n, n)
+    assert len(data) == n
+    out = tmp_path / f"o.fq{ext}"
+    w = writers.get_writer(str(out), 2)
+    _write_straddling(w, data)
+    w.finish()
+    raw = out.read_bytes()
+    c = trace.snapshot()["counters"]
+    assert c["output.bytes_in"] == n and c["output.bytes_out"] == len(raw)
+    if ext:
+        assert _one_member(raw) == data
+        assert gzip.decompress(raw) == data
+        if n <= _GZ_BLOCK:  # one block: zlib's serial gzip stream
+            z = zlib.compressobj(2, zlib.DEFLATED, 31)
+            assert raw == z.compress(data) + z.flush()
+        assert c["encode.blocks"] == max(1, -(-n // _GZ_BLOCK))
+        assert c["encode.busy_ns"] > 0
+    else:
+        assert raw == data
+        assert c["encode.blocks"] == c["encode.busy_ns"] == 0
+        assert c["encode.full_wait_ns"] == 0
+    plain = tmp_path / "p.fq"
+    plain.write_bytes(data)
+    assert (list(nl.NativeFastxReader(str(out)))
+            == list(nl.NativeFastxReader(str(plain))))
+
+
+@pytest.mark.parametrize("level", [1, 2, 6])
+def test_gzip_writer_keeps_the_serial_ratio(tmp_path, level):
+    data = _fastq_of_size(level, 5 * _GZ_BLOCK + 777)
+    out = tmp_path / "o.fq.gz"
+    w = nl.NativeWriter(str(out), 1, level)
+    _write_straddling(w, data)
+    w.finish()
+    raw = out.read_bytes()
+    assert _one_member(raw) == data
+    z = zlib.compressobj(level, zlib.DEFLATED, 31)
+    serial = len(z.compress(data) + z.flush())
+    assert abs(len(raw) / serial - 1) < 0.005
+
+
+def test_gzip_pair_writers_open_at_once(tmp_path):
+    r1 = _fastq_of_size(1, 3 * _GZ_BLOCK + 4321)
+    r2 = _fastq_of_size(2, 3 * _GZ_BLOCK + 8765)
+    o1, o2 = tmp_path / "o1.fq.gz", tmp_path / "o2.fq.gz"
+    w1 = writers.get_writer(str(o1), 2)
+    w2 = writers.get_writer(str(o2), 6)  # one pool, two levels
+    step = 300_001
+    for i in range(0, max(len(r1), len(r2)), step):
+        w1.write(r1[i:i + step])
+        w2.write(r2[i:i + step])
+    w1.finish()
+    w2.finish()
+    assert _one_member(o1.read_bytes()) == r1
+    assert _one_member(o2.read_bytes()) == r2
+
+
+@pytest.mark.parametrize("n", [5000, 6 * _GZ_BLOCK])
+def test_gzip_writer_failure_raises_and_joins(n):
+    data = _fastq_of_size(n, n)
+    before = _threads()
+    w = nl.NativeWriter("/dev/full", 1, 2)
+    assert _threads() > before  # the output thread (and the pool's)
+    with pytest.raises(OSError):
+        try:
+            for i in range(0, n, 65_536):
+                w.write(data[i:i + 65_536])
+        finally:
+            w.finish()
+    assert _threads() == before
+
+
+def test_dropped_gzip_writer_joins_its_threads(tmp_path):
+    before = _threads()
+    w = nl.NativeWriter(str(tmp_path / "o.fq.gz"), 1, 2)
+    w.write(_fastq_of_size(3, 2 * _GZ_BLOCK + 1))
+    del w
+    assert _threads() == before
+    assert _one_member((tmp_path / "o.fq.gz").read_bytes())
 
 
 @pytest.mark.parametrize("rename", [False, True])

@@ -213,9 +213,12 @@ def test_filter_traced_writes_the_same_bytes_and_records_every_stage(
         assert c["decode.busy_ns"] > 0 and c["encode.ns"] > 0
         assert c["decode.bytes"] == len(gzip.decompress(
             (data / "r1.fq.gz").read_bytes()))
+        assert c["encode.busy_ns"] > 0 and c["encode.blocks"] >= 1
     else:
         assert c["decode.busy_ns"] == c["decode.full_wait_ns"] == 0
         assert c["decode.bytes"] == c["reader.empty_wait_ns"] == 0
+        assert c["encode.busy_ns"] == c["encode.blocks"] == 0
+        assert c["encode.full_wait_ns"] == 0
 
 
 def test_filter_prints_the_registry_at_its_end(data, tmp_path, monkeypatch,
