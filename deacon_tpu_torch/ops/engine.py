@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import os
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -827,21 +828,29 @@ class DeviceHashProbe:
         """Start the search of u64 ``hashes``: uploads them and enqueues
         the search with this probe's card made current, and returns the
         pending bits for ``collect``. An empty search launches nothing and
-        returns its (empty or all-false) answer."""
+        returns its (empty or all-false) answer. Spans: ``probe.upload``
+        (the pinned copy and the host-to-device enqueue; nothing on the
+        CPU) and ``probe.search`` (searchsorted, gather, compare)."""
         q = np.ascontiguousarray(hashes, dtype=np.uint64)
         if q.size == 0 or len(self) == 0:
             return np.zeros(q.size, dtype=bool)
         t = torch.from_numpy(q.view(np.int64))
-        if self.device.type != "cuda":
-            return self.member(t ^ _I64_MIN)
-        with torch.cuda.device(self.device):
-            t = t.pin_memory().to(self.device, non_blocking=True)
-            return self.member(t ^ _I64_MIN)
+        on_card = self.device.type == "cuda"
+        with torch.cuda.device(self.device) if on_card else nullcontext():
+            with trace.span("probe.upload"):
+                if on_card:
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+            with trace.span("probe.search"):
+                return self.member(t ^ _I64_MIN)
 
     @staticmethod
     def collect(bits) -> np.ndarray:
-        """The bits of a ``launch``, on the host (waits for them)."""
-        return bits if isinstance(bits, np.ndarray) else bits.cpu().numpy()
+        """The bits of a ``launch``, on the host (waits for them: span
+        ``probe.fetch``)."""
+        if isinstance(bits, np.ndarray):
+            return bits
+        with trace.span("probe.fetch"):
+            return bits.cpu().numpy()
 
     def __call__(self, hashes: np.ndarray) -> np.ndarray:
         return self.collect(self.launch(hashes))

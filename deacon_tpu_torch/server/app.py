@@ -4,7 +4,8 @@ batched decision requests (ref: src/server.rs).
 Routes (the reference's surface, src/server.rs:48-58):
   GET  /                        -> human-readable status line
   GET  /index_header            -> IndexHeader JSON
-  GET  /index_version           -> "path@sha256(bytes)"
+  GET  /index_version           -> "path@sha256(bytes)" (a resident
+                                   index: the caller's version string)
   POST /should_output_unpaired  -> FilterResponse (JSON or binary frame)
   POST /should_output_paired    -> FilterResponse (JSON or binary frame)
 
@@ -12,8 +13,21 @@ Requests carry pre-hashed minimizers, so each request is one membership
 probe (ops/engine.DeviceHashProbe: the keys resident on ``device``,
 "cuda" by default or "cpu"; or, on "host", HostProbe: the host library's
 probe table, the JAX server's default) and the host's threshold
-decisions (filter/backend.LocalBackend). stdlib ThreadingHTTPServer; body limit
-2 GiB (ref: src/server.rs:58).
+decisions (filter/backend.LocalBackend). stdlib ThreadingHTTPServer
+(FilterHTTPServer: a thread a connection); body limit 2 GiB (ref:
+src/server.rs:58). The keys come from an index file, or from a
+MinimizerIndex already in memory (``make_server(index=...)``,
+ServerState.from_index: cuda or cpu, no mesh).
+
+With tracing on (utils/trace.py), each POST is span ``server.request``
+on its handler thread, split into ``server.read`` (the body),
+``server.decode``, ``server.decide`` (LocalBackend's decisions; its
+child ``server.probe`` is the probe, whose own children on a
+DeviceHashProbe are ``probe.upload``, ``probe.search`` and
+``probe.fetch``), ``server.encode`` and ``server.send``; counters
+``server.requests``, ``server.units``, ``server.hashes``,
+``server.bytes_in``, ``server.bytes_out`` and ``server.errors``
+(answers other than 200).
 
 ``--mesh DATAxSHARD`` keeps one value range of the keys on each shard's
 card (ops/engine.ShardedHashProbe). ``--mesh pod`` spans processes
@@ -58,9 +72,13 @@ from ..parallel.multihost import (
     world,
 )
 from ..parallel.sharded import Mesh
+from ..utils import trace
 from . import protocol
 
 MAX_BODY = 2_147_483_648  # 2 GiB, ref: src/server.rs:58
+#: ``/index_version`` of a server over a resident index unless the
+#: caller names it
+RESIDENT_VERSION = "resident@-"
 
 
 def _file_sha256(path: str) -> str:
@@ -213,23 +231,60 @@ class ServerState:
     DATAxSHARD mesh (a spec or a parallel.sharded.Mesh, whose devices may
     repeat), or this rank's value range (``mesh="pod"``).
     ``timings``: seconds of the start-up's sha256, index load and
-    upload."""
+    upload.
+
+    ``ServerState(index_path, ...)`` reads an index file;
+    ``ServerState.from_index`` takes keys already in memory. Both end in
+    one constructor (``_hold``), so from the probe up they run one path."""
 
     def __init__(self, index_path: str, device: str = "cuda",
                  mesh: str | None = None):
         make_probe = _make_probe(index_path, device, mesh)
         t = time.perf_counter()
-        self.version = f"{index_path}@{_file_sha256(index_path)}"
+        version = f"{index_path}@{_file_sha256(index_path)}"
         sha_s = time.perf_counter() - t
         print(f"Loading index from: {index_path}", file=sys.stderr)
         warn_if_foreign_index(index_path)
-        self.header, self.count = load_header_and_count(index_path)
-        self.probe = make_probe()
-        self.timings = {"sha256_s": sha_s, "load_index_s": self.probe.load_s,
-                        "upload_s": self.probe.upload_s}
-        stub = MinimizerIndex(self.header, np.empty(0, dtype=np.uint64))
-        self.backend = LocalBackend(stub, probe=self.probe)
+        header, count = load_header_and_count(index_path)
+        probe = make_probe()
+        self._hold(header, count, probe, version, sha_s)
         print("Loaded index!", file=sys.stderr)
+
+    @classmethod
+    def from_index(cls, index: MinimizerIndex, device: str = "cuda",
+                   version: str = RESIDENT_VERSION) -> "ServerState":
+        """A server state over ``index``'s keys, uploaded to ``device``
+        ("cuda" or "cpu": a DeviceHashProbe); the state keeps no reference
+        to ``index``, so the caller's copy is the only host copy.
+        ``/index_version`` answers ``version``. ``--mesh`` and ``--device
+        host`` take an index file only (ValueError here)."""
+        if device == "host":
+            raise ValueError("a resident index is served on cuda or cpu; "
+                             "--device host takes an index file")
+        self = cls.__new__(cls)
+        self._hold(index.header, int(index.hashes.size),
+                   DeviceHashProbe(index.hashes, device), version, 0.0)
+        return self
+
+    def _hold(self, header, count: int, probe, version: str,
+              sha_s: float) -> None:
+        self.header, self.count = header, count
+        self.probe, self.version = probe, version
+        self.timings = {"sha256_s": sha_s, "load_index_s": probe.load_s,
+                        "upload_s": probe.upload_s}
+        stub = MinimizerIndex(header, np.empty(0, dtype=np.uint64))
+        self.backend = LocalBackend(stub, probe=probe)
+
+
+class FilterHTTPServer(ThreadingHTTPServer):
+    """The stdlib threading server with a listen backlog that holds a
+    burst of clients. socketserver's default of 5 drops the SYNs of the
+    sixth and later of a burst of connections (each request is one
+    connection), and those clients wait a second for the retransmission:
+    under 12 concurrent requests on the CPU a request's p95 rose from
+    0.19 s to 0.7-1.0 s and the rate fell by a third."""
+
+    request_queue_size = 1024
 
 
 def make_handler(state: ServerState):
@@ -266,30 +321,56 @@ def make_handler(state: ServerState):
             else:
                 self._send(404, b"not found", "text/plain")
 
+        def _reply(self, code: int, body: bytes, ctype: str) -> None:
+            """A POST's answer (span ``server.send``; counters
+            ``server.bytes_out`` and, for any code but 200,
+            ``server.errors``)."""
+            if code != 200:
+                trace.count("server.errors")
+            with trace.span("server.send"):
+                self._send(code, body, ctype)
+            trace.count("server.bytes_out", len(body))
+
         def do_POST(self):
+            with trace.span("server.request"):
+                trace.count("server.requests")
+                self._post()
+
+        def _post(self):
             if self.path not in ("/should_output_unpaired",
                                  "/should_output_paired"):
                 # unread body bytes would desynchronize this keep-alive
                 # connection's next request
                 self.close_connection = True
-                self._send(404, b"not found", "text/plain")
+                self._reply(404, b"not found", "text/plain")
                 return
             try:
                 length = int(self.headers.get("Content-Length", "0"))
             except ValueError:
                 self.close_connection = True
-                self._send(400, b"bad Content-Length", "text/plain")
+                self._reply(400, b"bad Content-Length", "text/plain")
                 return
             if length < 0 or length > MAX_BODY:
                 self.close_connection = True
                 code, msg = ((413, b"body too large") if length > 0
                              else (400, b"bad Content-Length"))
-                self._send(code, msg, "text/plain")
+                self._reply(code, msg, "text/plain")
                 return
-            body = self.rfile.read(length)
+            with trace.span("server.read"):
+                body = self.rfile.read(length)
+            trace.count("server.bytes_in", len(body))
             paired = self.path.endswith("_paired")
             binary = protocol.is_binary_request(body)
             try:
+                out, ctype = self._answer(body, paired, binary)
+            except Exception as e:  # noqa: BLE001 - report to client
+                self._reply(400, f"bad request: {e}".encode(), "text/plain")
+                return
+            self._reply(200, out, ctype)
+
+        def _answer(self, body: bytes, paired: bool, binary: bool):
+            """The response body and content type of a request body."""
+            with trace.span("server.decode"):
                 if binary:
                     (batch, abs_t, rel_t, deplete, k, debug,
                      req_paired) = protocol.decode_binary_request(body)
@@ -299,26 +380,40 @@ def make_handler(state: ServerState):
                     batch, abs_t, rel_t, deplete, k, debug = (
                         protocol.decode_request(body, paired)
                     )
-                decide = (state.backend.decide_paired if paired
-                          else state.backend.decide_unpaired)
+            decide = (state.backend.decide_paired if paired
+                      else state.backend.decide_unpaired)
+            # the probe inside is span server.probe (LocalBackend)
+            with trace.span("server.decide"):
                 decisions = decide(batch, k, abs_t, rel_t, deplete, debug)
+            trace.count("server.units", len(decisions))
+            with trace.span("server.encode"):
                 if binary:
-                    self._send(200, protocol.encode_binary_response(decisions),
-                               protocol.BINARY_CTYPE)
-                else:
-                    self._send(200, protocol.encode_response(decisions))
-            except Exception as e:  # noqa: BLE001 - report to client
-                self._send(400, f"bad request: {e}".encode(), "text/plain")
+                    return (protocol.encode_binary_response(decisions),
+                            protocol.BINARY_CTYPE)
+                return protocol.encode_response(decisions), "application/json"
 
     return Handler
 
 
-def make_server(index_path: str, port: int, host: str = "0.0.0.0",
-                device: str = "cuda", mesh: str | None = None):
-    """A ThreadingHTTPServer serving the index; ``httpd.state`` is its
-    ServerState. The caller runs serve_forever."""
-    state = ServerState(index_path, device=device, mesh=mesh)
-    httpd = ThreadingHTTPServer((host, port), make_handler(state))
+def make_server(index_path: str | None = None, port: int = 0,
+                host: str = "0.0.0.0", device: str = "cuda",
+                mesh: str | None = None, *,
+                index: MinimizerIndex | None = None,
+                version: str = RESIDENT_VERSION):
+    """A FilterHTTPServer serving the index file ``index_path``, or
+    the keys of ``index`` held in memory (ServerState.from_index, on
+    "cuda" or "cpu", no mesh; ``version`` is its ``/index_version``);
+    ``httpd.state`` is its ServerState. The caller runs serve_forever."""
+    if (index_path is None) == (index is None):
+        raise ValueError("make_server takes one of an index path and "
+                         "index=")
+    if index is None:
+        state = ServerState(index_path, device=device, mesh=mesh)
+    elif mesh is not None:
+        raise ValueError("--mesh takes an index file, not a resident index")
+    else:
+        state = ServerState.from_index(index, device=device, version=version)
+    httpd = FilterHTTPServer((host, port), make_handler(state))
     httpd.state = state
     return httpd
 
