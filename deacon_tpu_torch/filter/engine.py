@@ -6,7 +6,8 @@ src/local_filter.rs:575-824, src/remote_filter.rs:431-693): records are
 read in batches by the host library's reader (io/fastx.RecordBatch: one
 byte arena, no object per read), minimizers are extracted, probed and
 counted for the whole batch on the device, and the kept records are
-gathered into the output in order by the host library. Up to
+gathered into the output in order by the host library. The reading
+runs ahead of the loop on a thread of its own (_read_batches). Up to
 ``resolve_depth`` batches stay in flight while the host reads ahead and
 writes behind; each holds its own copy of its reads. In client mode
 (``server_address``) the host extracts each batch's minimizers and a
@@ -673,22 +674,58 @@ def _split_byte_range(br):
     return br, None
 
 
+#: finished batches that _read_batches holds queued for the loop, at most;
+#: its read-ahead thread reads one more meanwhile
+READ_AHEAD_BATCHES = 1
+#: name of the read-ahead thread
+READ_AHEAD_THREAD = "deacon-read-ahead"
+#: the read-ahead's counters (see _ReadAhead)
+AHEAD_COUNTERS = ("reader.ahead_ready", "reader.ahead_waits",
+                  "reader.ahead_wait_ns", "reader.ahead_full_ns")
+
+
 def _read_batches(config: FilterConfig, input_type: str, byte_range=None):
     """The input (or its ``byte_range``, see _split_byte_range) as
     RecordBatches of ``config.batch_size`` read units, a pair's two
     records adjacent. Paired files stop at the shorter one; an
     interleaved stream with an odd record count is an error
-    (ref: src/remote_filter.rs:1188-1194)."""
+    (ref: src/remote_filter.rs:1188-1194).
+
+    The first ``next()`` opens the readers on the caller's thread (a
+    missing file raises OSError there). From then on a thread of the
+    generator's own (_ReadAhead) owns them: it reads, assembles and
+    interleaves each batch ahead of the caller, READ_AHEAD_BATCHES
+    finished batches at most, and the caller gets the same batches in the
+    same order, then a read error at the point in the stream where it
+    arose. Closing the generator stops and joins that thread, then closes
+    the readers (and with them an input pipe)."""
     size = config.batch_size
     br1, br2 = _split_byte_range(byte_range)
+    if input_type == "interleaved":
+        readers = [FastxReader.from_path("-")]
+    else:
+        readers = [FastxReader.from_path(config.input_path, byte_range=br1)]
+        if input_type == "paired":
+            readers.append(FastxReader.from_path(config.input2_path,
+                                                 byte_range=br2))
+    ahead = _ReadAhead(_assembled_batches(readers, input_type, size))
+    try:
+        while (batch := ahead.get()) is not None:
+            yield batch
+    finally:
+        ahead.close()
+        for reader in readers:
+            reader.close()
+
+
+def _assembled_batches(readers, input_type: str, size: int):
+    """_read_batches's batches, read from its open ``readers``."""
     if input_type == "single":
-        reader = FastxReader.from_path(config.input_path, byte_range=br1)
-        while len(batch := reader.read_batch(size)):
+        while len(batch := readers[0].read_batch(size)):
             yield batch
     elif input_type == "interleaved":
-        reader = FastxReader.from_path("-")
         count = 0
-        while len(batch := reader.read_batch(2 * size)):
+        while len(batch := readers[0].read_batch(2 * size)):
             count += len(batch)
             if len(batch) % 2:
                 raise ValueError(
@@ -696,8 +733,7 @@ def _read_batches(config: FilterConfig, input_type: str, byte_range=None):
                     f"Found {count} records.")
             yield batch
     else:
-        r1 = FastxReader.from_path(config.input_path, byte_range=br1)
-        r2 = FastxReader.from_path(config.input2_path, byte_range=br2)
+        r1, r2 = readers
         while len(b1 := r1.read_batch(size)):
             b2 = r2.read_batch(len(b1))
             n = len(b2)
@@ -707,6 +743,90 @@ def _read_batches(config: FilterConfig, input_type: str, byte_range=None):
                 yield batch
             if n < len(b1):
                 return
+
+
+class _ReadAhead:
+    """Runs the iterator ``items`` on a thread of its own into a FIFO of
+    at most READ_AHEAD_BATCHES items, which ``get`` takes in order; the
+    iterator's end and an exception it raises are queued after its items.
+    The thread's spans record under ``reader`` (trace.thread_parent).
+    With tracing on it counts ``reader.ahead_ready`` (get found a batch
+    queued), ``reader.ahead_waits`` and ``reader.ahead_wait_ns`` (get
+    waited for one) and ``reader.ahead_full_ns`` (the thread waited for
+    room: the caller sets the pace)."""
+
+    _END = object()
+
+    def __init__(self, items):
+        self._items = items
+        self._queue: deque = deque()
+        self._cond = threading.Condition()
+        self._stopped = False
+        for name in AHEAD_COUNTERS:  # listed, if only as 0
+            trace.count(name, 0)
+        self._thread = threading.Thread(target=self._produce,
+                                        name=READ_AHEAD_THREAD, daemon=True)
+        self._thread.start()
+
+    def _produce(self) -> None:
+        trace.thread_parent("reader")
+        end = self._END
+        try:
+            for item in self._items:
+                if not self._put(item):
+                    return
+        except Exception as e:  # raised by get, after the items before it
+            end = e
+        self._put(end)
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` once there is room; False once closed."""
+        with self._cond:
+            if len(self._queue) >= READ_AHEAD_BATCHES and not self._stopped:
+                t0 = time.perf_counter_ns() if trace.enabled() else 0
+                while (len(self._queue) >= READ_AHEAD_BATCHES
+                       and not self._stopped):
+                    self._cond.wait()
+                if t0:
+                    trace.count("reader.ahead_full_ns",
+                                time.perf_counter_ns() - t0)
+            if self._stopped:
+                return False
+            self._queue.append(item)
+            self._cond.notify()
+            return True
+
+    def get(self):
+        """The next item; None at the end; raises what the iterator
+        raised."""
+        with self._cond:
+            ready = bool(self._queue)
+            t0 = 0 if ready or not trace.enabled() else time.perf_counter_ns()
+            while not self._queue:
+                self._cond.wait()
+            item = self._queue.popleft()
+            self._cond.notify()
+        if item is self._END:
+            return None
+        if isinstance(item, Exception):
+            raise item
+        if ready:
+            trace.count("reader.ahead_ready")
+        else:
+            trace.count("reader.ahead_waits")
+            if t0:
+                trace.count("reader.ahead_wait_ns",
+                            time.perf_counter_ns() - t0)
+        return item
+
+    def close(self) -> None:
+        """Stop the thread (at once if it waits for room, else after the
+        read it is in) and join it."""
+        with self._cond:
+            self._stopped = True
+            self._queue.clear()
+            self._cond.notify()
+        self._thread.join()
 
 
 def _debug_lines(batch: RecordBatch, d: Decisions, paired: bool) -> None:

@@ -22,7 +22,10 @@ pipeline (native_filter_run), and the index build's accumulators
 Thread contract: ctypes releases the GIL for every call. A reader or a
 writer handle is used by one thread at a time; distinct handles, and
 every stateless function (packing, codec, merges, extraction), may run
-concurrently; so may queries of one NativeProbe.
+concurrently; so may queries of one NativeProbe. The filter loop's
+readers are opened on the loop's thread and then owned by the read-ahead
+thread of filter/engine._read_batches, which alone reads them; they are
+closed on the loop's thread once that thread has been joined.
 """
 
 from __future__ import annotations

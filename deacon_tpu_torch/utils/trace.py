@@ -2,10 +2,11 @@
 (read once, at import) or ``enable()``.
 
 ``with span("launch.pack"):`` times one stage of a layer. Each span name
-keeps, per parent span (the span open around it on the same thread, or
-None): its calls, its seconds on ``time.perf_counter_ns`` (CLOCK_MONOTONIC
-on Linux, the clock of the host library's counters), and its self seconds,
-its seconds less those of the spans opened inside it. While a
+keeps, per parent span (the span open around it on the same thread, else
+the name a worker thread gave with ``thread_parent``, or None): its
+calls, its seconds on ``time.perf_counter_ns`` (CLOCK_MONOTONIC on Linux,
+the clock of the host library's counters), and its self seconds, its
+seconds less those of the spans opened inside it. While a
 torch.profiler session records, a span is also the annotation
 ``deacon.<name>`` in the profiler's trace, on the clock of the device's
 kernels and copies. A span whose outermost span on its thread opened
@@ -164,7 +165,8 @@ class _Span:
         parent = self.parent
         if parent is not None:
             parent.child_ns += ns
-        key = (self.name, None if parent is None else parent.name)
+        key = (self.name, getattr(_local, "parent", None) if parent is None
+               else parent.name)
         spans = _registry().spans
         s = spans.get(key)
         if s is None:
@@ -176,6 +178,13 @@ class _Span:
             s[1] += ns
             s[2] += ns - self.child_ns
         return False
+
+
+def thread_parent(name: str | None) -> None:
+    """Record the spans that this thread opens under no span of its own
+    under the parent ``name``: a worker thread's stages under the layer
+    it works for (the filter's read-ahead thread's under ``reader``)."""
+    _local.parent = name
 
 
 def span(name: str):
