@@ -86,7 +86,7 @@ ending in torch.cuda.synchronize() and one flushed line with its seconds:
    two), and phase 7's under DEACON_PALLAS=1 (K5): every unit equal to
    the phase's reference counts, with Mbp/s, busy share, reruns and the
    window's launches of each kernel;
-4d: phase 4's reads through ShardedDecider on make_mesh(2, 4,
+4d: phase 4's reads through DeviceDecider over make_mesh(2, 4,
    ["cuda:0"] * 8) (two data rows, four table shards on the one card):
    every unit equal to phase 4's reference, K2 launched 4 times per
    batch, with Mbp/s, busy share, reruns, launches, the shard build's
@@ -235,7 +235,7 @@ import torch
 
 import deacon_tpu_torch as dtt
 from deacon_tpu_torch.cli import main as cli_main
-from deacon_tpu_torch.filter.engine import DeviceDecider, ShardedDecider
+from deacon_tpu_torch.filter.engine import DeviceDecider
 from deacon_tpu_torch.index.store import load_header_and_count
 from deacon_tpu_torch.io import native_loader as host
 from deacon_tpu_torch.io import zstd
@@ -1473,7 +1473,7 @@ def switch_window(table, k: int, reads, ref, n_bp: int, label: str,
     t0 = time.perf_counter()
     single, pairs, ont = reads
     with switches(**env):
-        decider = DeviceDecider(table, k, W_, "cuda")
+        decider = DeviceDecider(DevicePipeline(table, k, W_, device="cuda"))
         routes = sorted(set(decider.pipe.routes.values()))
         run_decider(decider, single[:2000], pairs[:1000], ont[:20])
         torch.cuda.synchronize()
@@ -1534,8 +1534,8 @@ def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False,
     reads through DeviceDecider, every unit against the reference; then
     the same reads under each of ``windows`` ((label, switches, kernel)),
     with ``sharded`` phase 13 (K2's sharded form on the table and the
-    main-path stream) and window 4d (the reads through ShardedDecider on
-    a 2x4 mesh of the card), and with ``served`` phases 15 and 16 (the
+    main-path stream) and window 4d (the reads through DeviceDecider
+    over a 2x4 mesh of the card), and with ``served`` phases 15 and 16 (the
     keys written to an index file: the server and client, index diff and
     union, and phase 17's codec part), before the table is freed."""
     t0 = time.perf_counter()
@@ -1544,10 +1544,10 @@ def panhuman(rng, k: int, phase: str, windows=(), sharded: bool = False,
     genome, g_hashes, keys_u, keys_s = panhuman_keys(rng, k, phase)
     dev = keys_u.device
     t_tab = time.perf_counter()
-    decider = DeviceDecider(keys_u, k, W_, "cuda")
+    decider = DeviceDecider(DevicePipeline(keys_u, k, W_, device="cuda"))
     torch.cuda.synchronize()
     table_s = time.perf_counter() - t_tab
-    table = decider.pipe.table
+    table = decider.pipe.blocks[0][0]
     single, pairs, ont = make_reads(rng, genome)
     n_bp = (sum(map(len, single)) + sum(len(a) + len(b) for a, b in pairs)
             + sum(map(len, ont)))
@@ -1810,7 +1810,7 @@ def phase13_k2_sharded(keys_u, table, stream) -> dict:
 
 
 def sharded_window(keys_u, k: int, reads, ref, n_bp: int) -> dict:
-    """Window 4d: phase 4's reads through ShardedDecider on a 2x4 mesh of
+    """Window 4d: phase 4's reads through DeviceDecider over a 2x4 mesh of
     the one card ([cuda:0] * 8: eight mesh positions, four table shards
     shared by the two data rows): every unit equal to the reference, K2
     launched 4 times per batch (K1 once), Mbp/s, busy share, reruns,
@@ -1819,8 +1819,8 @@ def sharded_window(keys_u, k: int, reads, ref, n_bp: int) -> dict:
     single, pairs, ont = reads
     torch.cuda.reset_peak_memory_stats()
     t_b = time.perf_counter()
-    decider = ShardedDecider(keys_u, k, W_,
-                             make_mesh(2, 4, [keys_u.device] * 8))
+    decider = DeviceDecider(DevicePipeline(
+        keys_u, k, W_, mesh=make_mesh(2, 4, [keys_u.device] * 8)))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t_b
     pipe = decider.pipe
@@ -1906,14 +1906,14 @@ def k2_alone(rng) -> dict:
     of this script times their K2 by the same measures."""
     t0 = time.perf_counter()
     genome, _, keys_u, _ = panhuman_keys(rng, K_, "4")
-    decider = DeviceDecider(keys_u, K_, W_, "cuda")
-    table = decider.pipe.table
+    table = build_radix_table(keys_u)
+    pipe = DevicePipeline(table, K_, W_, device="cuda")
     single, _, _ = make_reads(rng, genome)
-    stream = main_path_stream(decider.pipe, single[:8192])
+    stream = main_path_stream(pipe, single[:8192])
     out = {"phase4": measure_k2(table, *stream),
            "sharded": phase13_k2_sharded(keys_u, table, stream),
            "repeat_heavy": repeat_heavy(table, keys_u)}
-    del decider, table, stream, keys_u
+    del pipe, table, stream, keys_u
     torch.cuda.empty_cache()
     out["phase2"] = measure_k2(*dense_k2_stream())
     log("2-13 K2 alone", t0, **{n: json.dumps(v) for n, v in out.items()})

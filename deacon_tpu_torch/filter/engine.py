@@ -21,12 +21,16 @@ are never decoded, and is built from them otherwise. Under --debug the
 host path is HostDecider's, as in the JAX package. ``--device auto``
 picks ``host`` or ``cuda`` by the JAX package's rule (choose_device).
 
-The multi-process modes (parallel/multihost.py) enter here too:
-``--mesh pod`` runs this loop in every rank on the same input over a
-PodPipeline; ``--mesh pod-data`` and ``pod-2d`` split the input into
-byte ranges first (filter/pod_data.py), and each rank (or rank group)
-runs this loop over its range (``_byte_range``) and hands its stats back
-(``_return_stats``). In the pod modes no process loads the whole index.
+Every device run, on one card, on a ``--mesh DATAxSHARD`` or in a
+multi-process mode, decides through one DeviceDecider over one
+ops/engine.DevicePipeline; only the mesh it is given differs
+(make_decider). The multi-process modes (parallel/multihost.py) enter
+here too: ``--mesh pod`` runs this loop in every rank on the same input,
+over a pipeline whose mesh's shard axis spans the ranks; ``--mesh
+pod-data`` and ``pod-2d`` split the input into byte ranges first
+(filter/pod_data.py), and each rank (or rank group) runs this loop over
+its range (``_byte_range``) and hands its stats back (``_return_stats``).
+In the pod modes no process loads the whole index.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from ..io.fastx import FastxReader, RecordBatch, input_file_size
 from ..io.writers import FastxWriter, format_batch, get_writer, resolve_codec
 from ..ops import host_extract
 from ..ops.engine import DevicePipeline
-from ..parallel.sharded import ShardedPipeline, make_mesh, parse_mesh_spec
+from ..parallel.sharded import make_mesh, parse_mesh_spec
 from ..server.client import RemoteBackend
 from ..utils import trace
 from .backend import LocalBackend
@@ -127,6 +131,10 @@ class HostDecider:
         self.backend = backend
         self.k, self.w = k, w
 
+    def describe(self) -> str:
+        """The ``Engine:`` line's text."""
+        return "host batch engine (host library extraction)"
+
     def decide(self, arena, start, length, paired: bool, prefix_length,
                cfg: FilterConfig) -> Decisions:
         per = host_extract.extract_filter_arena(arena, start, length,
@@ -171,6 +179,9 @@ class RemoteDecider(HostDecider):
             max_workers=workers)
         self.resolve_depth = workers
 
+    def describe(self) -> str:
+        return "remote server decisions (host library extraction)"
+
     def launch(self, arena, start, length, paired: bool, prefix_length,
                cfg: FilterConfig):
         return self._pool.submit(self.decide, arena, start, length, paired,
@@ -187,14 +198,17 @@ def _decisions_from_counts(hits, totals, cfg: FilterConfig) -> Decisions:
 
 
 class DeviceDecider:
-    """Fused on-device extract+probe+count (ops/engine.DevicePipeline).
-    Every unit is decided on the device, including units wider than a
-    tile and rows over their minimizer budget: there is no fallback to
-    the host."""
+    """Fused on-device extract+probe+count over a built pipeline
+    (ops/engine.DevicePipeline: one card, a mesh or a pod). Every unit is
+    decided on the device, including units wider than a tile and rows
+    over their minimizer budget: there is no fallback to the host."""
 
-    def __init__(self, index_hashes, k: int, w: int, device):
-        self.pipe = DevicePipeline(index_hashes, k, w, device=device)
+    def __init__(self, pipe: DevicePipeline):
+        self.pipe = pipe
         self.resolve_depth = DevicePipeline.RESOLVE_DEPTH
+
+    def describe(self) -> str:
+        return self.pipe.describe()
 
     def launch(self, arena, start, length, paired: bool, prefix_length,
                cfg: FilterConfig):
@@ -203,28 +217,6 @@ class DeviceDecider:
             arena, start, length, unit, mate,
             length.size // 2 if paired else length.size, prefix_length)
         return lambda: _decisions_from_counts(*resolve(), cfg)
-
-
-class ShardedDecider(DeviceDecider):
-    """DeviceDecider over a mesh (parallel/sharded.ShardedPipeline): read
-    batches data-parallel over the mesh's rows, the radix table cut into
-    blocks of bucket rows over its shards, per-shard hits summed. Like
-    DeviceDecider it has no host fallback and no regrow: a unit wider
-    than a tile gets a batch of its own and rows over their budget rerun
-    on the card."""
-
-    def __init__(self, index_hashes, k: int, w: int, mesh):
-        self.pipe = ShardedPipeline(index_hashes, k, w, mesh)
-        self.resolve_depth = ShardedPipeline.RESOLVE_DEPTH
-
-    @classmethod
-    def from_pipeline(cls, pipe: ShardedPipeline) -> "ShardedDecider":
-        """The decider of a pipeline built elsewhere (from the index file,
-        or a PodPipeline)."""
-        self = cls.__new__(cls)
-        self.pipe = pipe
-        self.resolve_depth = ShardedPipeline.RESOLVE_DEPTH
-        return self
 
 
 #: the --mesh values of the multi-process modes (parallel/multihost.py)
@@ -241,17 +233,18 @@ def filter_mesh(mesh_spec: str, device: str):
     return make_mesh(n_data, n_shard)
 
 
-def _pod_pipeline(cfg: FilterConfig, k: int, w: int) -> ShardedPipeline:
+def _pod_pipeline(cfg: FilterConfig, k: int, w: int) -> DevicePipeline:
     """The pipeline of a multi-process mode, its blocks built from the
-    index file: a PodPipeline over the world (pod) or this rank's group
-    (pod-2d), or a rank-local mesh (pod-data with DEACON_POD_ENGINE=
-    sharded or DEACON_POD_LOCAL_MESH)."""
+    index file, over the world (pod), this rank's group (pod-2d) or a
+    rank-local mesh (pod-data with DEACON_POD_ENGINE=sharded or
+    DEACON_POD_LOCAL_MESH)."""
     from ..parallel import multihost
 
-    make = {"pod": multihost.make_pod_pipeline_from_file,
-            "pod-2d": multihost.make_pod2d_pipeline_from_file,
-            "pod-data": multihost.make_local_pipeline_from_file}[cfg.mesh]
-    return make(str(cfg.minimizers_path), k, w, cfg.device)
+    mesh_of = {"pod": multihost.make_pod_mesh,
+               "pod-2d": multihost.make_pod2d_group_mesh,
+               "pod-data": multihost.make_local_data_mesh}[cfg.mesh]
+    return DevicePipeline(str(cfg.minimizers_path), k, w,
+                          mesh=mesh_of(cfg.device))
 
 
 def choose_device(*, client: bool, mesh: str | None, debug: bool,
@@ -294,7 +287,7 @@ def make_decider(index, backend, k: int, w: int, cfg: FilterConfig):
     the host decider for --debug (its per-record k-mer dump needs host
     extraction; a mesh is still checked, and in the multi-process modes,
     where no host holds the index, it probes the pipeline's blocks:
-    ShardedPipeline.probe_hashes). In client mode the RemoteDecider:
+    DevicePipeline.probe_hashes). In client mode the RemoteDecider:
     host extraction, decisions on the server."""
     if cfg.minimizers_path is None:
         if cfg.mesh:
@@ -308,28 +301,12 @@ def make_decider(index, backend, k: int, w: int, cfg: FilterConfig):
                                   np.empty(0, dtype=np.uint64))
             return HostDecider(LocalBackend(stub, probe=pipe.probe_hashes),
                                k, w)
-        return ShardedDecider.from_pipeline(pipe)
+        return DeviceDecider(pipe)
     mesh = filter_mesh(cfg.mesh, cfg.device) if cfg.mesh else None
     if cfg.debug:
         return HostDecider(backend, k, w)
-    if mesh is not None:
-        return ShardedDecider(index.hashes, k, w, mesh)
-    return DeviceDecider(index.hashes, k, w, cfg.device)
-
-
-def _engine_desc(decider) -> str:
-    if isinstance(decider, ShardedDecider):
-        mesh = decider.pipe.mesh
-        shape = mesh.shape
-        desc = (f"sharded device pipeline (mesh data={shape['data']} x "
-                f"shard={shape['shard']}")
-        backend = getattr(mesh, "backend", None)
-        return desc + (f"; collectives over {backend})" if backend else ")")
-    if isinstance(decider, DeviceDecider):
-        return f"device pipeline ({decider.pipe.device})"
-    if isinstance(decider, RemoteDecider):
-        return "remote server decisions (host library extraction)"
-    return "host batch engine (host library extraction)"
+    return DeviceDecider(DevicePipeline(index.hashes, k, w,
+                                        device=cfg.device, mesh=mesh))
 
 
 def run(config: FilterConfig, _byte_range=None, _return_stats=False):
@@ -429,7 +406,7 @@ def run(config: FilterConfig, _byte_range=None, _return_stats=False):
 
     decider = make_decider(index, backend, k, w, config)
     if not quiet:
-        _eprint(f"Engine: {_engine_desc(decider)}")
+        _eprint(f"Engine: {decider.describe()}")
 
     stats = FilterStats()
     filtering_start = time.monotonic()

@@ -29,8 +29,8 @@ A missing sidecar is an error when DEACON_POD_TIMEOUT (seconds, default
 merge (rank 0 then reports rank-local stats only).
 
 ``--mesh pod-2d`` combines both: groups of ``DEACON_POD_SHARDS`` ranks,
-each group a pod (parallel/sharded.PodPipeline over the group's process
-group) over its own byte range.
+each group a pod (ops/engine.DevicePipeline over a PodMesh of the group's
+process group) over its own byte range.
 """
 
 from __future__ import annotations

@@ -25,17 +25,21 @@ One engine step per batch of rows of a tile (L, R), all on the device:
    shared by the four); no torch compaction follows it;
 2. XXH3-64 of every slot's value, 8 or 16 bytes (ops/hash.py);
 3. the probe stream sorted by (hash, read) and K2
-   (ops/kernels.probe_hits, csrc/radix_probe.cu) against the step's
-   tables: the whole radix table (DevicePipeline), or the shards of one,
-   each probed on its device and the hits summed
-   (parallel/sharded.ShardedPipeline): distinct member hashes per read
-   unit;
+   (ops/kernels.probe_hits, csrc/radix_probe.cu) against the blocks of
+   the batch's data row: the whole radix table on one card, or the
+   shards of one over a mesh, each probed on its device and the hits
+   summed: distinct member hashes per read unit;
 4. per-unit totals from the slot grid (ops/radix_probe.totals_grid);
 5. one fused int32 output: hits, totals, then ``used`` (the largest row
    total, for the host's budget check).
 
-Batches launch on the current stream without synchronising; a FetchGroup
-brings the outputs of every pending batch back in one device-to-host copy.
+DevicePipeline runs these steps on one card, or over a (data x shard)
+mesh (parallel/sharded.py): batches round-robin over the mesh's data
+rows, the radix table cut into blocks of bucket rows over its shards,
+and, for a mesh whose shards span processes, each batch's hits summed
+over them. Batches launch on the current stream without synchronising;
+a FetchGroup brings the outputs of every pending batch back in one
+device-to-host copy.
 A batch whose ``used`` exceeds its slot budget is finished on the device
 too: the units owning the rows over budget run once more with a budget
 that holds every row's minimizers (DevicePipeline._rerun_over_budget).
@@ -59,6 +63,7 @@ from __future__ import annotations
 import os
 import time
 from contextlib import nullcontext
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -68,7 +73,13 @@ from ..device import resolve_device
 from ..utils import trace
 from . import minimizers_np as mnp
 from .hash import as_i64, lsr, xxh3_64, xxh3_64_u128
-from .kernels import select_compact, select_csum, values_argmin, values_select
+from .kernels import (
+    probe_hits,
+    select_compact,
+    select_csum,
+    values_argmin,
+    values_select,
+)
 from .pack import (  # noqa: F401 (_Row, pack_rows_packed: the module's API)
     INDEX_CODE,
     RowBlock,
@@ -83,8 +94,10 @@ from .pack import (  # noqa: F401 (_Row, pack_rows_packed: the module's API)
 )
 from .radix_probe import (
     RadixTable,
+    build_radix_blocks_from_file,
     build_radix_shards,
     radix_probe_hits,
+    sort_runs,
     totals_grid,
 )
 
@@ -302,8 +315,8 @@ class FetchGroup:
 
 
 class DevicePipeline:
-    """Fused extract+probe+count pipeline over a device-resident radix
-    table.
+    """Fused extract+probe+count pipeline over device-resident radix
+    blocks, on one card or over a (data x shard) mesh.
 
     Read units (a read, or a pair) go to the smallest tile class (L, R)
     whose rows hold their chunks, and all rows of a unit stay in one
@@ -312,33 +325,43 @@ class DevicePipeline:
     minimizers has its unit rerun on the device at resolve;
     ``rerun_batches`` and ``rerun_units`` count those reruns.
 
-    ``index_hashes`` holds the index's u64 hashes (a NumPy array or an
-    int64 tensor), or is a RadixTable on this device, which the pipeline
-    shares. ``tiles`` defaults to DEACON_TPU_TILES, then DEFAULT_TILES.
-    Each tile class's selection kernel (``routes``, by row length) is
-    decided once here from (k, L, R) and the switches (tile_route): a
-    batch packs only the rows it has, so its row count never decides the
-    route. The probe is K2 on every route."""
+    ``index`` is the index's u64 hashes (a NumPy array or an int64
+    tensor), a RadixTable on the first device, which the pipeline shares
+    (a mesh of one shard only), or the path of an index file, whose blocks are
+    built from the keys of their own rows (build_radix_blocks_from_file),
+    so that no host holds the whole index.
+
+    ``blocks[d][j]`` is the block of shard column j on the device of data
+    row d; positions on one device share one block. With ``mesh`` None
+    the pipeline runs on ``device`` alone, the 1x1 grid ``[[table]]``.
+    With a mesh (parallel/sharded.Mesh, or multihost.PodMesh) batches go
+    round robin over its data rows, the table is cut into its
+    ``shape["shard"]`` blocks of bucket rows, of which this process
+    builds and probes those of ``mesh.shards``, and the outputs come back
+    to the mesh's first device, where the fetch group gathers them.
+
+    ``tiles`` defaults to DEACON_TPU_TILES, then DEFAULT_TILES. Each tile
+    class's selection kernel (``routes``, by row length) is decided once
+    here from (k, L, R) and the switches (tile_route): a batch packs only
+    the rows it has, so its row count never decides the route. The probe
+    is K2 on every route."""
 
     #: (row_len, rows_per_batch) tile classes, ascending; last holds chunks
     DEFAULT_TILES = ((256, 8192), (2048, 2048), (16384, 512))
     #: batches in flight before the filter engine resolves the oldest
     RESOLVE_DEPTH = 64
 
-    def __init__(self, index_hashes, k: int, w: int, tiles=None,
-                 device=None):
-        self._init_engine(k, w, tiles, resolve_device(device))
-        if isinstance(index_hashes, RadixTable):
-            if index_hashes.slots.device != self.device:
-                raise ValueError("the radix table is not on this device")
-            self.table = index_hashes  # shared, not copied
+    def __init__(self, index, k: int, w: int, tiles=None, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is None:
+            grid, shards, n_shard, agree = (
+                ((resolve_device(device),),), (0,), 1, None)
         else:
-            self.table = build_radix_shards(index_hashes, 1, [self.device])[0]
-
-    def _init_engine(self, k: int, w: int, tiles, device: torch.device):
-        """Everything but the table: k, w, tile classes and routes, the
-        fetch group and the rerun counters."""
-        self.device = device
+            grid, shards, n_shard, agree = (
+                mesh.devices, mesh.shards, mesh.shape["shard"],
+                mesh.agree_max)
+        self.device = grid[0][0]
         if not 1 <= k <= MAX_K_FILTER:
             raise ValueError(
                 "Indexing the bitmask of invalid characters requires "
@@ -355,6 +378,34 @@ class DevicePipeline:
         self.fetch_group = FetchGroup()
         self.rerun_batches = 0
         self.rerun_units = 0
+        self.n_data = len(grid)
+        self._row_devices = [row[0] for row in grid]
+        self._turn = 0
+        if isinstance(index, RadixTable):
+            if index.slots.device != self.device:
+                raise ValueError("the radix table is not on this device")
+            first = [index]  # shared, not copied
+        elif isinstance(index, (str, os.PathLike)):
+            built = build_radix_blocks_from_file(
+                index, n_shard, dict(zip(shards, grid[0])), agree)
+            first = [built[j] for j in shards]
+        else:
+            first = build_radix_shards(index, n_shard, grid[0])
+        # first[c] is on grid[0][c]; every other device of column c gets
+        # one copy of it
+        held = {(dev, c): first[c] for c, dev in enumerate(grid[0])}
+        for row in grid:
+            for c, dev in enumerate(row):
+                if (dev, c) not in held:
+                    held[(dev, c)] = _copy_to(first[c], dev)
+        self.blocks = [[held[(dev, c)] for c, dev in enumerate(row)]
+                       for row in grid]
+
+    def describe(self) -> str:
+        """The filter's ``Engine:`` line for this pipeline."""
+        if self.mesh is None:
+            return f"device pipeline ({self.device})"
+        return f"sharded device pipeline ({self.mesh.describe()})"
 
     def launch_counts(self, arena: np.ndarray, start: np.ndarray,
                       length: np.ndarray, unit: np.ndarray,
@@ -411,6 +462,14 @@ class DevicePipeline:
             ticket = self.fetch_group.register([f[4] for f in in_flight])
 
             def resolve():
+                """(hits, totals) of the launch. On a mesh whose shards
+                span processes (a PodMesh), every process of the shard
+                group must resolve the same launches in the same order:
+                each resolve makes exactly one all-reduce of the hits
+                (sum_over_shards), after any rerun of rows over their
+                budget, which is decided from row totals that are the
+                same in every process (the slot grid does not depend on
+                the shard), never from a process's own hits."""
                 hits = np.zeros(n_logical, dtype=np.int64)
                 totals = np.zeros(n_logical, dtype=np.int64)
                 fetched = self.fetch_group.materialize(ticket)
@@ -423,6 +482,8 @@ class DevicePipeline:
                                                        h, t)
                     hits[gids] += h
                     totals[gids] += t
+                if self.mesh is not None:
+                    hits = self.mesh.sum_over_shards(hits)
                 return hits, totals
 
             return resolve
@@ -456,9 +517,13 @@ class DevicePipeline:
 
     def _launch_batch(self, rows: RowBlock, L: int, n_units: int,
                       budget: int):
-        """Pack and launch one batch; returns (fused output, row totals)."""
-        return self._step(rows, L, n_units, budget, self.device,
-                          [self.table])
+        """Pack and launch one batch on the next data row in turn; returns
+        (fused output on the first device, row totals)."""
+        d = self._turn % self.n_data
+        self._turn += 1
+        out, rt = self._step(rows, L, n_units, budget, self._row_devices[d],
+                             self.blocks[d])
+        return out.to(self.device, non_blocking=True), rt
 
     def _step(self, rows: RowBlock, L: int, n_units: int, budget: int,
               device: torch.device, tables):
@@ -482,6 +547,33 @@ class DevicePipeline:
                 dedup_positions=L >= self.L_max, route=self.routes[L],
             )
 
+    def probe_hashes(self, hashes: np.ndarray) -> np.ndarray:
+        """Membership of u64 hashes in the index (the --debug decider's
+        probe where no host holds the index): K2 over the sorted distinct
+        hashes, each its own read, once per block of the first data row,
+        the hits summed (over the mesh's processes too)."""
+        q = np.ascontiguousarray(hashes, dtype=np.uint64)
+        if q.size == 0:
+            return np.zeros(0, dtype=bool)
+        uniq, inv = np.unique(q, return_inverse=True)
+        # the stream K2 takes: ascending as int64, read id = position
+        order = np.argsort(uniq.view(np.int64), kind="stable")
+        keys = torch.from_numpy(uniq.view(np.int64)[order])
+        srid = torch.arange(keys.numel(), dtype=torch.int32)
+        first = torch.ones(keys.numel(), dtype=torch.int32)
+        hits = np.zeros(keys.numel(), dtype=np.int64)
+        for t in self.blocks[0]:
+            dev = t.slots.device
+            hits += probe_hits(
+                t.slots, t.spill, keys.to(dev), srid.to(dev), first.to(dev),
+                p=t.p, sp=t.sp, num_segments=keys.numel(), row_lo=t.row_lo,
+            ).cpu().numpy()
+        if self.mesh is not None:
+            hits = self.mesh.sum_over_shards(hits)
+        member = np.zeros(uniq.size, dtype=bool)
+        member[order] = hits > 0
+        return member[inv]
+
     def counts_single(self, seqs: list[bytes], prefix_length: int):
         return self.launch_single(seqs, prefix_length)()
 
@@ -501,6 +593,11 @@ class DevicePipeline:
         i = np.arange(2 * len(pairs), dtype=np.int64)
         return self.launch_counts(arena, start, length, i // 2, i % 2,
                                   len(pairs), prefix_length)
+
+
+def _copy_to(t: RadixTable, device: torch.device) -> RadixTable:
+    return replace(t, slots=t.slots.to(device),
+                   spill=None if t.spill is None else t.spill.to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -730,14 +827,7 @@ class DistinctHashes:
         """Add every sequence's hashes in order; returns the (n_seqs,)
         running distinct totals after each sequence."""
         before = len(self)
-        q = hashes ^ _I64_MIN
-        o = torch.argsort(seq, stable=True)
-        q, seq = q[o], seq[o]
-        o = torch.argsort(q, stable=True)
-        q, seq = q[o], seq[o]
-        first = torch.ones_like(q, dtype=torch.bool)
-        if q.numel() > 1:
-            first[1:] = q[1:] != q[:-1]
+        q, seq, first = sort_runs(hashes ^ _I64_MIN, seq, pairs=False)
         q, seq = q[first], seq[first]  # each key at its first sequence
         if before and q.numel():
             i = torch.searchsorted(self.flipped, q).clamp(max=before - 1)
@@ -942,14 +1032,7 @@ class KeptKeys:
             return None
         i, seq = i[hit], seq[hit]
         new = self.keep[i]
-        i, seq = i[new], seq[new]
-        o = torch.argsort(seq, stable=True)
-        i, seq = i[o], seq[o]
-        o = torch.argsort(i, stable=True)
-        i, seq = i[o], seq[o]
-        first = torch.ones_like(i, dtype=torch.bool)
-        if i.numel() > 1:
-            first[1:] = i[1:] != i[:-1]
+        i, seq, first = sort_runs(i[new], seq[new], pairs=False)
         self.keep[i] = False
         new_per = torch.bincount(seq[first], minlength=n_seqs)
         return before + new_per.cumsum(0).cpu().numpy()

@@ -359,24 +359,40 @@ def _count_stored(slots: np.ndarray, bits: int) -> int:
     return int(np.count_nonzero((slots >> np.uint64(64 - bits)) == rows))
 
 
+def sort_runs(key: torch.Tensor, seq: torch.Tensor, *, pairs: bool,
+              dtype: torch.dtype = torch.bool):
+    """(key, seq, first): the entries sorted by key, then by seq, as
+    signed integers, with two stable argsorts (by seq, then by key), and
+    ``first`` (of ``dtype``) marking the first entry of each run of equal
+    keys, or of equal (key, seq) pairs when ``pairs``. This is the order
+    K2 relies on (csrc/radix_probe.cu): the probe stream ascends in
+    (key as int64, srid), so a key's reads ascend and the fillers (key
+    -1, srid -1) form one run. The probe stream (prep_sorted), the index
+    build's distinct set (engine.DistinctHashes) and index diff's removed
+    keys (engine.KeptKeys) are sorted here."""
+    o = torch.argsort(seq, stable=True)
+    key, seq = key[o], seq[o]
+    o = torch.argsort(key, stable=True)
+    key, seq = key[o], seq[o]
+    first = torch.ones(key.numel(), dtype=dtype, device=key.device)
+    if key.numel() > 1:
+        new = key[1:] != key[:-1]
+        if pairs:
+            new = new | (seq[1:] != seq[:-1])
+        first[1:] = new.to(dtype)
+    return key, seq, first
+
+
 def prep_sorted(hashes: torch.Tensor, slot_valid: torch.Tensor,
                 rid_slots: torch.Tensor):
     """Flatten the (R, Br) slot grids into the probe stream: srid = read
-    id for a valid slot and -1 for a filler, sorted by (key, srid) with
-    two stable sorts; first marks each new (key, srid) run."""
+    id for a valid slot and -1 for a filler, sorted by (key, srid)
+    (sort_runs); first (int32) marks each new (key, srid) run."""
     q = hashes.numel()
     sv = slot_valid.reshape(q)
     srid = torch.where(sv, rid_slots.reshape(q).to(torch.int32), -1)
     key = torch.where(sv, hashes.reshape(q), -1)
-    o1 = torch.argsort(srid, stable=True)
-    key, srid = key[o1], srid[o1]
-    o2 = torch.argsort(key, stable=True)
-    key, srid = key[o2], srid[o2]
-    first = torch.ones(q, dtype=torch.int32, device=key.device)
-    if q > 1:
-        first[1:] = ((key[1:] != key[:-1]) | (srid[1:] != srid[:-1])).to(
-            torch.int32
-        )
+    key, srid, first = sort_runs(key, srid, pairs=True, dtype=torch.int32)
     return key.contiguous(), srid.contiguous(), first
 
 

@@ -7,10 +7,10 @@ Every rank runs the same command with the JAX package's environment:
         python -m deacon_tpu_torch filter INDEX READS -o OUT --mesh pod
 
 * ``--mesh pod``: the index's radix table is cut into one block of bucket
-  rows per rank (rank j holds block j; parallel/sharded.PodPipeline),
-  every rank is fed the SAME input, and each batch's hits are summed over
-  the ranks with one all-reduce. What scales with the ranks is the index
-  memory, not the reads/s.
+  rows per rank (rank j holds block j of ops/engine.DevicePipeline over
+  a PodMesh), every rank is fed the SAME input, and each batch's hits
+  are summed over the ranks with one all-reduce. What scales with the
+  ranks is the index memory, not the reads/s.
 * ``--mesh pod-2d``: ranks form groups of ``DEACON_POD_SHARDS``
   consecutive ranks; each group is a pod over its own byte range of the
   input (filter/pod_data.run_pod_2d).
@@ -43,13 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
-from .sharded import (
-    Mesh,
-    PodPipeline,
-    ShardedPipeline,
-    make_mesh,
-    parse_mesh_spec,
-)
+from .sharded import Mesh, make_mesh, parse_mesh_spec
 
 #: seconds any collective waits for its peers before it raises
 COLLECTIVE_TIMEOUT_S = 600
@@ -142,6 +136,13 @@ class PodMesh(Mesh):
     def shape(self) -> dict[str, int]:
         return {"data": len(self.devices), "shard": self.n_shard}
 
+    @property
+    def shards(self) -> tuple[int, ...]:
+        return (self.shard,)
+
+    def describe(self) -> str:
+        return f"{super().describe()}; collectives over {self.backend}"
+
     def _all_reduce(self, arr: np.ndarray, op) -> np.ndarray:
         if self.n_shard == 1:
             return arr
@@ -210,13 +211,6 @@ def make_pod_mesh(device: str = "cuda") -> PodMesh:
     return _pod_mesh(local_devices(device), list(range(nproc)), rank)
 
 
-def make_pod_pipeline_from_file(index_path: str, k: int, w: int,
-                                device: str = "cuda") -> PodPipeline:
-    """Each rank builds its block of the index file's radix table from
-    the keys of its rows alone (no rank holds the whole index)."""
-    return PodPipeline(index_path, k, w, make_pod_mesh(device))
-
-
 def pod2d_shards(nproc: int) -> int:
     """DEACON_POD_SHARDS, checked to divide the number of ranks."""
     try:
@@ -249,12 +243,6 @@ def make_pod2d_group_mesh(device: str = "cuda") -> PodMesh:
     return _pod_mesh(local_devices(device), members, rank)
 
 
-def make_pod2d_pipeline_from_file(index_path: str, k: int, w: int,
-                                  device: str = "cuda") -> PodPipeline:
-    """PodPipeline over this rank's pod-2d group mesh."""
-    return PodPipeline(index_path, k, w, make_pod2d_group_mesh(device))
-
-
 def make_local_data_mesh(device: str = "cuda") -> Mesh:
     """The rank-local mesh of ``--mesh pod-data`` with
     DEACON_POD_LOCAL_MESH=DxS (reads over D rows of this rank's cards,
@@ -274,12 +262,3 @@ def make_local_data_mesh(device: str = "cuda") -> Mesh:
     else:
         n_data, n_shard = len(devs), 1
     return make_mesh(n_data, n_shard, devs)
-
-
-def make_local_pipeline_from_file(index_path: str, k: int, w: int,
-                                  device: str = "cuda") -> ShardedPipeline:
-    """``--mesh pod-data`` on a rank-local mesh: the blocks are built from
-    the file's keys of their own rows (ShardedPipeline.from_file); no
-    collective."""
-    return ShardedPipeline.from_file(index_path, k, w,
-                                     make_local_data_mesh(device))

@@ -467,7 +467,7 @@ def test_k2_kernel_edge_cases_match_plain_and_whole_table(cuda, name):
 
 def test_sharded_pipeline_on_card_matches_device_pipeline(cuda):
     from deacon_tpu_torch.ops.minimizers_np import compute_minimizer_hashes
-    from deacon_tpu_torch.parallel.sharded import ShardedPipeline, make_mesh
+    from deacon_tpu_torch.parallel.sharded import make_mesh
 
     rng = np.random.default_rng(6)
     genome = rng.choice(_B, size=200_000).tobytes()
@@ -481,8 +481,8 @@ def test_sharded_pipeline_on_card_matches_device_pipeline(cuda):
     seqs[7] = genome[:300] + b"A" * 700
     pairs = list(zip(seqs[::2], seqs[1::2]))
     tiles = ((256, 64), (1024, 32))
-    pipe = ShardedPipeline(idx, 31, 15, make_mesh(1, 4, [cuda] * 4),
-                           tiles=tiles)
+    pipe = DevicePipeline(idx, 31, 15, tiles=tiles,
+                          mesh=make_mesh(1, 4, [cuda] * 4))
     ref = DevicePipeline(idx, 31, 15, tiles=tiles, device=cuda)
     tk.probe_hits.launches = tk.select_compact.launches = 0
     got = (pipe.counts_single(seqs, 0), pipe.counts_paired(pairs, 0))

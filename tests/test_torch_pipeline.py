@@ -100,7 +100,8 @@ def test_spilled_index_matches_jax():
     genome = _rs(rng, 300_000)
     idx = _index_with_spill(rng, genome)
     port, ref = _pipes(idx, ((512, 64),))
-    assert port.table.sp > 0 and ref._probe_extra[4] == port.table.sp
+    table = port.blocks[0][0]
+    assert table.sp > 0 and ref._probe_extra[4] == table.sp
     seqs = _reads(rng, genome, 30, 31, 480)
     got, want = port.counts_single(seqs, 0), ref.counts_single(seqs, 0)
     np.testing.assert_array_equal(got[0], want[0])

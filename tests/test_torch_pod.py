@@ -115,10 +115,9 @@ multihost.make_pod_mesh = app.make_pod_mesh = two_rows
 _TWO_ROWS = _TWO_ROWS_MESH + """
 from deacon_tpu_torch.cli import main
 from deacon_tpu_torch.ops.engine import DevicePipeline
-from deacon_tpu_torch.parallel import sharded
 
 turns, reruns = [], [0]
-launch = sharded.ShardedPipeline._launch_batch
+launch = DevicePipeline._launch_batch
 rerun = DevicePipeline._rerun_over_budget
 
 
@@ -132,7 +131,7 @@ def spy_rerun(self, *a):
     return rerun(self, *a)
 
 
-sharded.ShardedPipeline._launch_batch = spy_launch
+DevicePipeline._launch_batch = spy_launch
 DevicePipeline._rerun_over_budget = spy_rerun
 argv = sys.argv[1:]
 if argv[0] == "--heartbeat":
@@ -337,7 +336,7 @@ def test_filter_pod_data_two_ranks_match_jax(data, inputs):
 def test_filter_pod_debug_lines_match_jax(data, capsys):
     """--debug on a pod mesh, where no process holds the index: host
     extraction, membership through each rank's block
-    (ShardedPipeline.probe_hashes) summed over the ranks; every rank's
+    (DevicePipeline.probe_hashes) summed over the ranks; every rank's
     DEBUG lines are the JAX package's one-process lines."""
     reads = data / "dbg.fq"
     with open(data / "s.fq", "rb") as f:

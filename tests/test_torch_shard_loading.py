@@ -1,14 +1,16 @@
 """Shard loading of the port (index/store.py, radix_probe.
 build_radix_blocks_from_file) and its per-process pipeline
-(parallel/sharded.PodPipeline) against deacon_tpu, on the CPU, exact.
+(ops/engine.DevicePipeline over one rank's PodMesh) against deacon_tpu,
+on the CPU, exact.
 
 * shard_value_range and load_index_shard equal the JAX package's for
   N = 1-4 shards, on a sorted file and on an unsorted file with
   duplicates; the [lo, hi) loader's pieces reassemble the index.
-* A pipeline built rank by rank (each "rank" a PodPipeline holding only
-  its block, built from the file's keys of its rows) gives, batch by
-  batch, hits whose sum over the ranks is the one-process
-  ShardedPipeline's and the JAX package's DevicePipeline's, with equal
+* A pipeline built rank by rank (each "rank" a DevicePipeline over a
+  PodMesh, holding only its block, built from the file's keys of its
+  rows) gives, batch by batch, hits whose sum over the ranks is the
+  one-process 1xS mesh pipeline's and the JAX package's
+  DevicePipeline's, with equal
   totals, for S = 2 and S = 3 (uneven row ranges) and a spilled index.
 * The agreement point, with ranks as threads: an error in one rank
   raises in all, and the retry at p + 1 (a spill that cannot be packed)
@@ -27,6 +29,7 @@ from deacon_tpu.index import store as jstore  # noqa: E402
 from deacon_tpu.ops.engine import DevicePipeline as JaxPipeline  # noqa: E402
 from deacon_tpu_torch.index import store as tstore  # noqa: E402
 from deacon_tpu_torch.ops import minimizers_np as mnp  # noqa: E402
+from deacon_tpu_torch.ops.engine import DevicePipeline  # noqa: E402
 from deacon_tpu_torch.ops import radix_probe as trp  # noqa: E402
 from deacon_tpu_torch.parallel import sharded as tsh  # noqa: E402
 from deacon_tpu_torch.parallel.multihost import PodMesh  # noqa: E402
@@ -141,18 +144,17 @@ def test_rank_by_rank_pipeline_matches_one_process_and_jax(
     path = tmp_path / "i.idx"
     tstore.write_index(keys, tstore.IndexHeader.new(31, 15), path)
     cpu = torch.device("cpu")
-    ranks = [tsh.PodPipeline(str(path), 31, 15,
-                             _AloneMesh(((cpu,),), n_shard=n_shard, shard=j),
-                             tiles=TILES)
+    ranks = [DevicePipeline(str(path), 31, 15, tiles=TILES,
+                            mesh=_AloneMesh(((cpu,),), n_shard=n_shard,
+                                            shard=j))
              for j in range(n_shard)]
     p = trp.choose_p(keys.size)
     for j, pipe in enumerate(ranks):
         t = pipe.blocks[0][0]
         assert (t.row_lo, t.row_lo + t.slots.shape[0]) == trp.shard_rows(
             j, n_shard, p)
-    whole = tsh.ShardedPipeline(keys, 31, 15,
-                                tsh.make_mesh(1, n_shard, ["cpu"] * n_shard),
-                                tiles=TILES)
+    whole = DevicePipeline(keys, 31, 15, tiles=TILES,
+                           mesh=tsh.make_mesh(1, n_shard, ["cpu"] * n_shard))
     jpipe = JaxPipeline(keys, 31, 15, tiles=TILES)
     batches = [("single", seqs[:30]), ("single", seqs[30:]),
                ("paired", pairs)]

@@ -10,11 +10,12 @@
   when its row is full, each above the row's last key.
 * K2's plain version with a row range: the hits of the blocks of a table
   sum to the whole table's hits (spill matches count on one shard only).
-* The port's ShardedPipeline on 2x4 and 4x2 meshes of the CPU against the
-  JAX ShardedPipeline on 8 virtual CPU devices, on the inputs of
+* The port's DevicePipeline on 1x1, 2x4 and 4x2 meshes of the CPU against
+  the JAX ShardedPipeline on 8 virtual CPU devices, on the inputs of
   tests/test_sharded.py (a 3000-base genome with chunked and below-k
-  reads, a 600,000-base genome, a spilled index), singles and pairs; and
-  under DEACON_PALLAS=1 and DEACON_TPU_TILES=384:64,1152:16.
+  reads, a 600,000-base genome, a spilled index), singles and pairs; the
+  1x1 mesh also against the one-card form, reruns included; and under
+  DEACON_PALLAS=1 and DEACON_TPU_TILES=384:64,1152:16.
 * make_mesh and parse_mesh_spec: the reference's messages, repeated
   devices, the card count.
 """
@@ -28,6 +29,7 @@ jax = pytest.importorskip("jax")
 from deacon_tpu.ops import radix_probe as jrp  # noqa: E402
 from deacon_tpu.parallel import sharded as jsh  # noqa: E402
 from deacon_tpu_torch.ops import kernels as tk  # noqa: E402
+from deacon_tpu_torch.ops.engine import DevicePipeline  # noqa: E402
 from deacon_tpu_torch.ops import minimizers_np as mnp  # noqa: E402
 from deacon_tpu_torch.ops import radix_probe as trp  # noqa: E402
 from deacon_tpu_torch.parallel import sharded as tsh  # noqa: E402
@@ -94,7 +96,7 @@ def cases():
 def jax_counts(cases):
     """(mesh, case) -> JAX ShardedPipeline (single, paired) counts."""
     got = {}
-    for mesh in ((2, 4), (4, 2)):
+    for mesh in ((2, 4), (4, 2), (1, 1)):
         for name, (idx, seqs, pairs, (L, rs)) in cases.items():
             pipe = jsh.ShardedPipeline(idx, 31, 15, jsh.make_mesh(*mesh),
                                        row_len=L, rows_per_shard=rs)
@@ -109,21 +111,34 @@ def _assert_counts_equal(got, want):
         np.testing.assert_array_equal(g[1], w[1])
 
 
-@pytest.mark.parametrize("mesh", [(2, 4), (4, 2)])
+@pytest.mark.parametrize("mesh", [(2, 4), (4, 2), (1, 1)])
 @pytest.mark.parametrize("name", ["small", "radix", "spill"])
 def test_sharded_pipeline_matches_jax(cases, jax_counts, monkeypatch, mesh,
                                       name):
     for env in _SWITCHES:
         monkeypatch.delenv(env, raising=False)
     idx, seqs, pairs, (L, rs) = cases[name]
-    pipe = tsh.ShardedPipeline(
-        idx, 31, 15, tsh.make_mesh(*mesh, ["cpu"] * 8), tiles=((L, rs),))
+    pipe = DevicePipeline(idx, 31, 15, tiles=((L, rs),),
+                          mesh=tsh.make_mesh(*mesh, ["cpu"] * 8))
     got = (pipe.counts_single(seqs, 0), pipe.counts_paired(pairs, 0))
     _assert_counts_equal(got, jax_counts[mesh, name])
     assert got[0][0].sum() > 0 and got[1][0].sum() > 0
     assert len(pipe.blocks) == mesh[0] and len(pipe.blocks[0]) == mesh[1]
     if name == "spill":
         assert all(t.sp > 0 for row in pipe.blocks for t in row)
+    if mesh == (1, 1):
+        # a 1x1 mesh is the one-card form: the same table, counts and
+        # reruns, also of low-complexity rows over their slot budget
+        # (which the JAX pipeline refuses)
+        one = DevicePipeline(idx, 31, 15, tiles=((L, rs),), device="cpu")
+        _assert_counts_equal(
+            (one.counts_single(seqs, 0), one.counts_paired(pairs, 0)), got)
+        low = [seqs[0] + b"A" * 600, b"AC" * 450, b"T" * 1000, seqs[1]]
+        _assert_counts_equal([one.counts_single(low, 0)],
+                             [pipe.counts_single(low, 0)])
+        assert ((one.rerun_batches, one.rerun_units)
+                == (pipe.rerun_batches, pipe.rerun_units) == (1, 2))
+        assert torch.equal(one.blocks[0][0].slots, pipe.blocks[0][0].slots)
 
 
 @pytest.mark.parametrize("env", [{"DEACON_PALLAS": "1"},
@@ -137,8 +152,8 @@ def test_sharded_pipeline_under_switch_matches_jax(cases, jax_counts,
     for e, v in env.items():
         monkeypatch.setenv(e, v)
     idx, seqs, pairs, _ = cases[name]
-    pipe = tsh.ShardedPipeline(idx, 31, 15,
-                               tsh.make_mesh(2, 4, ["cpu"] * 8))
+    pipe = DevicePipeline(idx, 31, 15,
+                          mesh=tsh.make_mesh(2, 4, ["cpu"] * 8))
     want_route = "K5" if "DEACON_PALLAS" in env else "K4"
     assert set(pipe.routes.values()) == {want_route}
     got = (pipe.counts_single(seqs, 0), pipe.counts_paired(pairs, 0))
@@ -324,8 +339,8 @@ def test_parse_and_make_mesh(monkeypatch):
 
 def test_batches_go_round_robin_over_data_rows(cases, monkeypatch):
     idx, seqs, _, _ = cases["radix"]
-    pipe = tsh.ShardedPipeline(idx, 31, 15, tsh.make_mesh(3, 2, ["cpu"] * 6),
-                               tiles=((256, 8),))
+    pipe = DevicePipeline(idx, 31, 15, tiles=((256, 8),),
+                          mesh=tsh.make_mesh(3, 2, ["cpu"] * 6))
     seen = []
     step = pipe._step
 

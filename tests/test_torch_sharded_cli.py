@@ -5,6 +5,8 @@
   ``--mesh 2x4`` on its 8 virtual CPU devices, single and paired, search
   and deplete, and the same ``Engine:`` line.
 * ``--mesh 1x2 --debug``: the DEBUG lines of the JAX CLI's run.
+* One card and ``--mesh 1x1`` (the same 1x1 grid): the same output, each
+  with its own ``Engine:`` line.
 * A malformed mesh: the JAX CLI's error; ``--mesh pod|pod-data|pod-2d``
   without what the multi-process modes need (DEACON_COORD for pod,
   DEACON_POD_SHARDS for pod-2d, an output file for pod-data's parts): an
@@ -114,6 +116,25 @@ def test_mesh_debug_lines_match_jax_cli(data, capsys):
         err = capsys.readouterr().err
         lines[tool] = [ln for ln in err.splitlines() if ln.startswith("DEBUG")]
     assert lines["torch"] == lines["jax"] and lines["torch"]
+
+
+@pytest.mark.parametrize("mesh,line", [
+    ([], "Engine: device pipeline (cpu)"),
+    (["--mesh", "1x1"],
+     "Engine: sharded device pipeline (mesh data=1 x shard=1)")])
+def test_one_card_and_1x1_mesh_engine_lines(data, capsys, mesh, line):
+    outs = {}
+    for name, extra in (("one", []), ("this", mesh)):
+        out = data / f"engine_{name}_{len(mesh)}.fq"
+        capsys.readouterr()
+        assert torch_main(["filter", str(data / "ref.idx"),
+                           str(data / "s.fq"), "-o", str(out), "-a", "1",
+                           "--device", "cpu", *extra]) == 0
+        err = capsys.readouterr().err.splitlines()
+        outs[name] = (out.read_bytes(),
+                      [ln for ln in err if ln.startswith("Engine:")])
+    assert outs["this"][1] == [line]
+    assert outs["this"][0] == outs["one"][0] and outs["one"][0]
 
 
 @pytest.mark.parametrize("spec", ["2y4", "0x2", "x3"])
